@@ -34,14 +34,20 @@ def test_package_renders_without_importing_jax():
         "import sys, torch\n"
         "import volumetric_renderer_torch as vt\n"
         "from volumetric_renderer_torch import models\n"
-        "from volumetric_renderer_torch.apps import render_cli\n"
-        "from volumetric_renderer_torch.utils import convert\n"
+        "from volumetric_renderer_torch.apps import optimize, render_cli\n"
+        "from volumetric_renderer_torch.parallel import train\n"
+        "from volumetric_renderer_torch.utils import checkpoint, convert\n"
+        "from volumetric_renderer_torch.utils import metrics\n"
         "v = models.sphere(12).as_torch()\n"
         "tf = torch.from_numpy(vt.Gradient.grayscale_ramp().discretize(16))\n"
         "img = vt.render(v, tf, vt.OrbitCamera.from_angles(30, 20),\n"
         "                vt.RenderSettings(height=8, width=8,\n"
         "                                  step_size=1.8 / 16))\n"
         "assert img.shape == (8, 8, 4) and float(img[..., 3].max()) > 0\n"
+        "optimize.main(['tf-fit', '--grid', '8', '--size', '8x8',\n"
+        "               '--march-steps', '8', '--views', '1',\n"
+        "               '--steps-opt', '1', '--tf-resolution', '8',\n"
+        "               '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "                                            'volumetric_renderer_tpu')))\n"

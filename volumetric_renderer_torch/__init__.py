@@ -6,10 +6,14 @@ NVIDIA Hopper.  Module paths and public names mirror the JAX package:
 
   * ``scene``, ``core``, ``transfer``, ``ops``: cameras, rays, sampling and
     the plain PyTorch marchers (``core.marcher`` is the oracle),
-  * ``kernels``: the CUDA forward ray march (``csrc/march_fwd.cu``) and its
-    plain version, built with nvcc on first use,
+  * ``kernels``: the CUDA forward and backward ray marches
+    (``csrc/march_fwd.cu``, ``csrc/march_bwd.cu``) and their plain
+    versions, built with nvcc on first use,
   * ``data``, ``models``: NRRD / CSV import and procedural volumes (NumPy),
-  * ``render``: the one-frame API, ``apps.render_cli``: the offline CLI.
+  * ``render``: the one-frame API (differentiable), ``apps.render_cli``: the
+    offline CLI,
+  * ``parallel.train``, ``apps.optimize``: single-device TF fit and grid
+    inversion, with ``utils.checkpoint`` and ``utils.metrics``.
 
 This package never imports JAX.
 """

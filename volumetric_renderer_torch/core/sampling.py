@@ -17,15 +17,16 @@ from __future__ import annotations
 import torch
 
 
-def trilinear_sample(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Sample ``vol[Z, Y, X]`` at normalized coords ``pts[..., 3] = (x, y, z)``.
-
-    Border handling: out-of-range corner texels contribute 0 (transparent
-    black border), i.e. the corner's weight is kept but its value is zeroed —
-    exactly what CLAMP_TO_BORDER linear filtering computes.
-    """
-    zdim, ydim, xdim = vol.shape
-    dims = torch.tensor([xdim, ydim, zdim], dtype=pts.dtype, device=pts.device)
+def trilinear_corners(shape, pts: torch.Tensor) -> list:
+    """The 8 corners of a trilinear fetch from a ``(Z, Y, X)`` grid at
+    normalized coords ``pts[..., 3] = (x, y, z)``, in the order z, y, x:
+    ``(flat, valid, weight)`` with ``flat`` the index into the flattened
+    grid (clipped into it), ``valid`` whether the corner lies inside the
+    grid and ``weight`` its lerp weight.  The backward of the fused march
+    scatters to the same corners."""
+    zdim, ydim, xdim = shape
+    dims = torch.tensor([xdim, ydim, zdim], dtype=pts.dtype,
+                        device=pts.device)
     # Texel space: coordinate u covers texel centers at (i+0.5)/N.
     f = pts * dims - 0.5
     i0 = torch.floor(f)
@@ -34,8 +35,7 @@ def trilinear_sample(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
     x0, y0, z0 = i0[..., 0], i0[..., 1], i0[..., 2]
-
-    out = torch.zeros(pts.shape[:-1], dtype=vol.dtype, device=vol.device)
+    corners = []
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
@@ -45,17 +45,29 @@ def trilinear_sample(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
                     & (iy >= 0) & (iy < ydim)
                     & (iz >= 0) & (iz < zdim)
                 )
-                v = vol[
-                    torch.clamp(iz, 0, zdim - 1),
-                    torch.clamp(iy, 0, ydim - 1),
-                    torch.clamp(ix, 0, xdim - 1),
-                ]
+                flat = ((torch.clamp(iz, 0, zdim - 1) * ydim
+                         + torch.clamp(iy, 0, ydim - 1)) * xdim
+                        + torch.clamp(ix, 0, xdim - 1))
                 weight = (
                     (wx if dx else 1.0 - wx)
                     * (wy if dy else 1.0 - wy)
                     * (wz if dz else 1.0 - wz)
                 )
-                out = out + torch.where(valid, v, 0.0) * weight
+                corners.append((flat, valid, weight))
+    return corners
+
+
+def trilinear_sample(vol: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Sample ``vol[Z, Y, X]`` at normalized coords ``pts[..., 3] = (x, y, z)``.
+
+    Border handling: out-of-range corner texels contribute 0 (transparent
+    black border), i.e. the corner's weight is kept but its value is zeroed —
+    exactly what CLAMP_TO_BORDER linear filtering computes.
+    """
+    flat_vol = vol.reshape(-1)
+    out = torch.zeros(pts.shape[:-1], dtype=vol.dtype, device=vol.device)
+    for flat, valid, weight in trilinear_corners(vol.shape, pts):
+        out = out + torch.where(valid, flat_vol[flat], 0.0) * weight
     return out
 
 

@@ -2,9 +2,9 @@
 interface (nvcc, loaded with ``ctypes``).
 
 The library is compiled on first use into ``build/kernels/`` at the root of
-the checkout, under a name keyed on a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded again.  Nothing is
-compiled at import time.
+the checkout, under a name keyed on a hash of the source, the shared
+headers and the flags, so a changed source or header is rebuilt and an
+unchanged one is loaded again.  Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -49,13 +49,22 @@ def find_nvcc() -> str:
                        "cannot be built")
 
 
+def _source_key(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` header (the sources
+    include them) and the flags: an edit to any of them means a rebuild."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            key.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return key.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; raise
     with nvcc's output if it fails."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"{name}_{key.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{name}_{_source_key(name)}.so")
     log_path = out + ".log"
     if os.path.exists(out) and os.path.exists(log_path):
         with open(log_path) as f:

@@ -1,14 +1,19 @@
-"""Forward ray march (K1): the CUDA kernel ``csrc/march_fwd.cu`` and its
-plain PyTorch version.
+"""The ray-march kernels and their plain PyTorch versions.
 
-It replaces the JAX package's TPU kernel
-``volumetric_renderer_tpu/kernels/slab.py:_make_kernel``.  Ray setup
-(``core.marcher.prepare_rays``: box entry, entry clamp, window reciprocal)
-stays in torch; the kernel takes over the per-step loop.
+* K1, the forward march ``csrc/march_fwd.cu``, replaces the JAX package's
+  TPU kernel ``volumetric_renderer_tpu/kernels/slab.py:_make_kernel``;
+  its plain version is ``core.fused.march_prepared``.
+* K2, the backward re-march ``csrc/march_bwd.cu``, replaces
+  ``slab.py:_make_bwd_kernel``; its plain version is
+  ``core.fused.march_backward_prepared``.
 
-:func:`march_forward` is the one entry point.  On CPU tensors it runs
-:func:`march_forward_plain`; on CUDA tensors it launches the kernel or
-raises.  It never falls back to the plain version on the card.
+Ray setup (``core.marcher.prepare_rays``: box entry, entry clamp, window
+reciprocal) stays in torch; the kernels take over the per-step loops.
+:func:`make_kernel_marcher` ties K1 and K2 into one differentiable marcher.
+
+:func:`march_forward` and :func:`march_backward` are the entry points.  On
+CPU tensors they run the plain versions; on CUDA tensors they launch the
+kernel or raise.  They never fall back to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -17,126 +22,165 @@ import ctypes
 
 import torch
 
-from volumetric_renderer_torch.core.fused import ALPHA_EPS, march_prepared
+from volumetric_renderer_torch.core.fused import (
+    ALPHA_EPS,
+    MarchFunction,
+    march_backward_prepared,
+    march_prepared,
+)
 from volumetric_renderer_torch.kernels import _build
 
-#: The plain version: the forward of ``core.fused`` (same inputs, same
-#: operations in the same order).
+#: The plain versions: same inputs, same operations in the same order.
 march_forward_plain = march_prepared
+march_backward_plain = march_backward_prepared
 
-_lib = None
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (on first use) and load the kernel's shared library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(_build.build("march_fwd").path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.march_fwd_launch.restype = i
-        lib.march_fwd_launch.argtypes = [
-            i, p, p, p, p, i, i, i, p, i, p, i, i,  # device .. width
-            f, f, f, f, f, f, f, f,                 # dmin, inv_w, smin, smax
-            i, f, i, f, f, p,                       # steps .. amax, stream
-        ]
-        lib.march_fwd_max_dynamic_smem.restype = i
-        lib.march_fwd_max_dynamic_smem.argtypes = [
-            i, ctypes.POINTER(ctypes.c_int)]
-        lib.march_fwd_error_string.restype = ctypes.c_char_p
-        lib.march_fwd_error_string.argtypes = [i]
-        _lib = lib
-    return _lib
+_libs: dict = {}
 
 
-def _check_cuda(code: int, lib, what: str) -> None:
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of kernel library ``name`` on ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "march_fwd":
+        launch = [i, p, p, p, p, i, i, i, p, i, p, i, i,  # device .. width
+                  f, f, f, f, f, f, f, f,       # dmin, inv_w, smin, smax
+                  i, f, i, f, f, p]             # steps .. amax, stream
+    else:
+        launch = [i, p, p, p, p, i, i, i, p, i,  # device .. ntf
+                  p, p, p, p, p, i, i,           # out .. width
+                  f, f, f, f, f, f, f, f,        # dmin, inv_w, smin, smax
+                  i, f, i, f, f, f, p]           # steps .. alpha_eps, stream
+    getattr(lib, f"{name}_launch").restype = i
+    getattr(lib, f"{name}_launch").argtypes = launch
+    getattr(lib, f"{name}_max_dynamic_smem").restype = i
+    getattr(lib, f"{name}_max_dynamic_smem").argtypes = [
+        i, ctypes.POINTER(ctypes.c_int)]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    getattr(lib, f"{name}_error_string").argtypes = [i]
+    return lib
+
+
+def load_library(name: str = "march_fwd") -> ctypes.CDLL:
+    """Build (on first use) and load kernel library ``name``
+    (``march_fwd`` or ``march_bwd``)."""
+    if name not in _libs:
+        _libs[name] = _bind(name, ctypes.CDLL(_build.build(name).path))
+    return _libs[name]
+
+
+def _check_cuda(code: int, lib, name: str, what: str) -> None:
     if code != 0:
-        msg = lib.march_fwd_error_string(code).decode()
-        raise RuntimeError(f"march_fwd: {what} failed: CUDA error {code} "
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name}: {what} failed: CUDA error {code} "
                            f"({msg})")
+
+
+def _device_of(fn: str, tensors: dict) -> torch.device:
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{fn}: inputs on several devices "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {device}")
+    return device
+
+
+def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
+                         name: str, device) -> tuple:
+    """The checks every launch makes: types, contiguity, shapes, int range
+    and shared memory.  Returns ``(lib, device index, height, width)``."""
+    for key, t in tensors.items():
+        want = torch.bool if key == "hit" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{fn}: {key} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {key} must be contiguous")
+    vol, tf, pos0 = tensors["vol"], tensors["tf"], tensors["pos0"]
+    if vol.dim() != 3 or min(vol.shape) < 1:
+        raise ValueError(f"{fn}: vol must be (Z, Y, X), got "
+                         f"{tuple(vol.shape)}")
+    if tf.dim() != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
+        raise ValueError(f"{fn}: tf must be (N, 4), got {tuple(tf.shape)}")
+    if pos0.dim() != 3 or pos0.shape[-1] != 3:
+        raise ValueError(f"{fn}: pos0 must be (H, W, 3), got "
+                         f"{tuple(pos0.shape)}")
+    height, width = pos0.shape[:2]
+    if tuple(tensors["dirs"].shape) != tuple(pos0.shape) or \
+            tuple(tensors["hit"].shape) != (height, width):
+        raise ValueError(f"{fn}: dirs must match pos0 (H, W, 3) and hit "
+                         "must be (H, W)")
+    for key in ("out", "g"):
+        if key in tensors and \
+                tuple(tensors[key].shape) != (height, width, 4):
+            raise ValueError(f"{fn}: {key} must be (H, W, 4) = "
+                             f"{(height, width, 4)}, got "
+                             f"{tuple(tensors[key].shape)}")
+    if max(*vol.shape, height, width) >= 2 ** 31:
+        raise ValueError(f"{fn}: a dimension past 2^31 - 1 does not fit the "
+                         "kernel's int arguments")
+
+    lib = load_library(name)
+    dev_index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    limit = ctypes.c_int(0)
+    _check_cuda(getattr(lib, f"{name}_max_dynamic_smem")(
+        dev_index, ctypes.byref(limit)), lib, name,
+        "reading the shared-memory limit")
+    need = tf.shape[0] * smem_per_texel
+    if need > limit.value:
+        raise ValueError(f"{fn}: a {tf.shape[0]}-texel TF needs {need} bytes "
+                         f"of shared memory; the device allows {limit.value}")
+    return lib, dev_index, height, width
+
+
+def _floats(fn: str, x, n: int) -> list:
+    vals = torch.as_tensor(x, dtype=torch.float32).detach().reshape(-1)
+    vals = vals.tolist()
+    if len(vals) != n:
+        raise ValueError(f"{fn}: expected {n} values, got {len(vals)}")
+    return vals
+
+
+def _window(fn: str, dmin, inv_window, smin, smax) -> list:
+    """``[dmin, inv_w, *smin, *smax]`` as host floats."""
+    return (_floats(fn, dmin, 1) + _floats(fn, inv_window, 1)
+            + _floats(fn, smin, 3) + _floats(fn, smax, 3))
 
 
 def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                   num_steps: int, step_size: float, early_termination: bool,
                   termination_eps: float) -> torch.Tensor:
-    """March prepared rays: ``pos0``/``dirs`` ``(H, W, 3)``, ``hit``
+    """K1: march prepared rays: ``pos0``/``dirs`` ``(H, W, 3)``, ``hit``
     ``(H, W)`` bool; returns RGBA ``(H, W, 4)`` float32.
 
     ``dmin`` and ``inv_window`` are scalars and ``smin``/``smax`` 3-vectors
     (tensors or numbers).  On CUDA every tensor must be float32 (``hit``
-    bool) and contiguous, on one device, and none may require grad: the
-    backward kernel (K2) is not ported yet.
+    bool) and contiguous, on one device.  The output carries no graph:
+    under grad mode, inputs that require grad raise; differentiate through
+    :func:`make_kernel_marcher` (``render(method="kernel")``) instead.
     """
+    fn = "march_forward"
     tensors = {"vol": vol, "tf": tf, "pos0": pos0, "dirs": dirs, "hit": hit}
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"march_forward: inputs on several devices "
-                         f"{sorted(map(str, devices))}")
-    device = devices.pop()
+    device = _device_of(fn, tensors)
     if device.type == "cpu":
         return march_forward_plain(
             vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             num_steps=num_steps, step_size=step_size,
             early_termination=early_termination,
             termination_eps=termination_eps)
-    if device.type != "cuda":
-        raise ValueError(f"march_forward: no kernel for device {device}")
 
-    scalars = {"dmin": dmin, "inv_window": inv_window, "smin": smin,
-               "smax": smax}
-    for name, x in {**tensors, **scalars}.items():
-        if torch.is_tensor(x) and x.requires_grad:
-            raise NotImplementedError(
-                f"march_forward: {name} requires grad, but the backward "
-                "ray-march kernel (K2, volumetric_renderer_tpu/kernels/"
-                "slab.py:_make_bwd_kernel) is not ported yet")
-    for name, t in tensors.items():
-        want = torch.bool if name == "hit" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"march_forward: {name} must be {want}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"march_forward: {name} must be contiguous")
-    if vol.dim() != 3 or min(vol.shape) < 1:
-        raise ValueError(f"march_forward: vol must be (Z, Y, X), got "
-                         f"{tuple(vol.shape)}")
-    if tf.dim() != 2 or tf.shape[1] != 4 or tf.shape[0] < 1:
-        raise ValueError(f"march_forward: tf must be (N, 4), got "
-                         f"{tuple(tf.shape)}")
-    if pos0.dim() != 3 or pos0.shape[-1] != 3:
-        raise ValueError(f"march_forward: pos0 must be (H, W, 3), got "
-                         f"{tuple(pos0.shape)}")
-    height, width = pos0.shape[:2]
-    if tuple(dirs.shape) != tuple(pos0.shape) or \
-            tuple(hit.shape) != (height, width):
-        raise ValueError("march_forward: dirs must match pos0 (H, W, 3) and "
-                         "hit must be (H, W)")
-    if max(*vol.shape, height, width) >= 2 ** 31:
-        raise ValueError("march_forward: a dimension past 2^31 - 1 does not "
-                         "fit the kernel's int arguments")
-
-    lib = load_library()
-    dev_index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    smem_limit = ctypes.c_int(0)
-    _check_cuda(lib.march_fwd_max_dynamic_smem(dev_index,
-                                               ctypes.byref(smem_limit)),
-                lib, "reading the shared-memory limit")
-    if tf.shape[0] * 16 > smem_limit.value:
-        raise ValueError(f"march_forward: a {tf.shape[0]}-texel TF needs "
-                         f"{tf.shape[0] * 16} bytes of shared memory; the "
-                         f"device allows {smem_limit.value}")
-
-    def floats(x, n):
-        vals = torch.as_tensor(x, dtype=torch.float32).reshape(-1).tolist()
-        if len(vals) != n:
-            raise ValueError(f"march_forward: expected {n} values, got "
-                             f"{len(vals)}")
-        return vals
-
-    (dmin_f,) = floats(dmin, 1)
-    (inv_w,) = floats(inv_window, 1)
-    s0 = floats(smin, 3)
-    s1 = floats(smax, 3)
+    if torch.is_grad_enabled():
+        for key, x in {**tensors, "dmin": dmin, "inv_window": inv_window,
+                       "smin": smin, "smax": smax}.items():
+            if torch.is_tensor(x) and x.requires_grad:
+                raise RuntimeError(
+                    f"{fn}: {key} requires grad, but the kernel's output "
+                    "carries no graph; differentiate through "
+                    "make_kernel_marcher or render(method='kernel'), whose "
+                    "backward is the K2 kernel (march_backward)")
+    lib, dev_index, height, width = _check_kernel_inputs(
+        fn, tensors, 16, "march_fwd", device)
+    window = _window(fn, dmin, inv_window, smin, smax)
 
     out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -144,14 +188,81 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     code = lib.march_fwd_launch(
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
         vol.data_ptr(), nz, ny, nx, tf.data_ptr(), tf.shape[0],
-        out.data_ptr(), height, width, dmin_f, inv_w, *s0, *s1,
+        out.data_ptr(), height, width, *window,
         int(num_steps), float(step_size), int(bool(early_termination)),
         float(termination_eps), 1.0 - ALPHA_EPS, stream)
-    _check_cuda(code, lib, "launch")
+    _check_cuda(code, lib, "march_fwd", "launch")
     march_forward.launches += 1
     return out
 
 
-#: Kernel launches since the count was last reset; a run sets it to 0 and
-#: reads it back to show that its main path went through the kernel.
+def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
+                   out, g, *, num_steps: int, step_size: float,
+                   early_termination: bool, termination_eps: float):
+    """K2: the re-march backward of :func:`march_forward` over the same
+    prepared rays, given its output ``out`` and the cotangent ``g`` (both
+    ``(H, W, 4)``).  Returns ``(vol_g, tf_g, dmin_g, dmax_g)``: the grid
+    gradient ``(Z, Y, X)``, the TF gradient ``(N, 4)`` and two scalars.
+
+    The same checks as :func:`march_forward`; ``g`` is made contiguous.  On
+    CUDA the gradients come from f32 atomics, so they are not bitwise
+    repeatable.
+    """
+    fn = "march_backward"
+    g = g.detach().contiguous()
+    tensors = {"vol": vol, "tf": tf, "pos0": pos0, "dirs": dirs, "hit": hit,
+               "out": out, "g": g}
+    device = _device_of(fn, tensors)
+    if device.type == "cpu":
+        return march_backward_plain(
+            vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, out, g,
+            num_steps=num_steps, step_size=step_size,
+            early_termination=early_termination,
+            termination_eps=termination_eps)
+
+    lib, dev_index, height, width = _check_kernel_inputs(
+        fn, tensors, 48, "march_bwd", device)
+    window = _window(fn, dmin, inv_window, smin, smax)
+
+    # the TF and window gradients are accumulated in f64, as in the plain
+    # version, and rounded to f32 here
+    vol_g = torch.zeros_like(vol)
+    tf_g = torch.zeros(tf.shape, dtype=torch.float64, device=device)
+    win_g = torch.zeros(2, dtype=torch.float64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    nz, ny, nx = vol.shape
+    code = lib.march_bwd_launch(
+        dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
+        vol.data_ptr(), nz, ny, nx, tf.data_ptr(), tf.shape[0],
+        out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
+        win_g.data_ptr(), height, width, *window,
+        int(num_steps), float(step_size), int(bool(early_termination)),
+        float(termination_eps), 1.0 - ALPHA_EPS, ALPHA_EPS, stream)
+    _check_cuda(code, lib, "march_bwd", "launch")
+    march_backward.launches += 1
+    win_g = win_g.float()
+    return vol_g, tf_g.float(), win_g[0], win_g[1]
+
+
+#: Kernel launches since the count was last reset; a run sets them to 0 and
+#: reads them back to show that its main path went through the kernels.
 march_forward.launches = 0
+march_backward.launches = 0
+
+
+def make_kernel_marcher(num_steps: int, step_size: float,
+                        early_termination: bool, termination_eps: float):
+    """The differentiable kernel marcher: ``f(vol, tf_table, origin, dirs,
+    density_min, density_max, slice_min, slice_max) -> rgba`` with K1
+    (:func:`march_forward`) as its forward and K2 (:func:`march_backward`)
+    as its backward; the signature of ``core.fused.make_fused_marcher``."""
+    march_kw = dict(num_steps=num_steps, step_size=step_size,
+                    early_termination=early_termination,
+                    termination_eps=termination_eps)
+
+    def march(vol, tf, origin, dirs, dmin, dmax, smin, smax):
+        return MarchFunction.apply(march_forward, march_backward, march_kw,
+                                   vol, tf, origin, dirs, dmin, dmax, smin,
+                                   smax)
+
+    return march

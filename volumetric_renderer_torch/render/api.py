@@ -6,13 +6,15 @@ The interactive mutation entry points of the reference collapse into plain
 function arguments: pass a different volume / TF table / slicing window /
 ``RenderSettings`` and you have "mutated" the renderer.
 
-Methods:
+Methods, all differentiable in the grid, the TF table and the density
+window:
   * ``"oracle"`` — the plain-autograd marcher of ``core.marcher``.  Ground
-    truth.
-  * ``"fused"``  — the plain PyTorch version of the forward kernel
-    (``core.fused``: the oracle plus the ``ALPHA_EPS`` opacity clamp).
-  * ``"kernel"`` — the hand-written CUDA forward kernel
-    (``kernels/march.py``); CUDA volumes only.
+    truth; its backward keeps every step's intermediates.
+  * ``"fused"``  — the plain PyTorch versions of the kernels
+    (``core.fused``: the oracle plus the ``ALPHA_EPS`` opacity clamp), with
+    the O(1)-memory re-march backward; any device.
+  * ``"kernel"`` — the hand-written CUDA kernels (``kernels/march.py``): K1
+    forward, K2 backward; CUDA volumes only.
   * ``"auto"`` (default) — ``"kernel"`` for a CUDA volume, ``"fused"`` for a
     CPU volume.
 
@@ -26,12 +28,8 @@ from __future__ import annotations
 import torch
 
 from volumetric_renderer_torch.core.fused import make_fused_marcher
-from volumetric_renderer_torch.core.marcher import (
-    frame_inputs,
-    march_rays,
-    prepare_rays,
-)
-from volumetric_renderer_torch.kernels.march import march_forward
+from volumetric_renderer_torch.core.marcher import frame_inputs, march_rays
+from volumetric_renderer_torch.kernels.march import make_kernel_marcher
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.utils.config import RenderSettings
 
@@ -65,6 +63,9 @@ def render(
 
     Defaults mirror the reference UBO (``offscreen_pass.h:29-37``): the
     density window is the volume's min/max, the slicing window [0,1]^3.
+    That default window stays in the graph: the gradient reaching it flows
+    into ``vol`` through ``min``/``max``, split evenly among tied voxels,
+    as ``jnp.min``/``jnp.max`` do in the JAX package.
 
     ``tf_srgb=True`` treats the TF table's RGB as sRGB-encoded and decodes
     it before lookup — byte-for-byte the reference's ``R8G8B8A8_SRGB`` TF
@@ -99,12 +100,8 @@ def render(
         return march_rays(vol, tf_table, origin, dirs, density_min=dmin,
                           density_max=dmax, slice_min=smin, slice_max=smax,
                           **march)
-    if method == "fused":
-        marcher = make_fused_marcher(**march)
-        return marcher(vol, tf_table, origin, dirs, dmin, dmax, smin, smax)
-    pos0, hit, inv_window = prepare_rays(origin, dirs, dmin, dmax)
-    return march_forward(vol, tf_table, pos0, dirs, hit, dmin, inv_window,
-                         smin, smax, **march)
+    make = make_fused_marcher if method == "fused" else make_kernel_marcher
+    return make(**march)(vol, tf_table, origin, dirs, dmin, dmax, smin, smax)
 
 
 def composite_over(rgba: torch.Tensor, background,
@@ -137,3 +134,23 @@ def adjust_display(rgb: torch.Tensor, brightness: float = 0.0,
     """
     out = (rgb - 0.5) * (1.0 + contrast) + 0.5 + brightness
     return torch.clamp(out, 0.0, 1.0)
+
+
+def render_loss_and_grads(vol, tf_table, camera, target,
+                          settings: RenderSettings = RenderSettings(), *,
+                          loss: str = "l2", method: str = "fused", **kw):
+    """Pixel loss against ``target`` and its gradients with respect to
+    ``(vol, tf_table)``: ``(value, (vol_g, tf_g))``, as the JAX package's
+    ``render_loss_and_grads``.  ``loss="l2"`` is ``0.5 * mean(diff**2)`` over
+    RGB, ``"l1"`` is ``mean(|diff|)``; ``kw`` goes to :func:`render`."""
+    if loss not in ("l2", "l1"):
+        raise ValueError(f"unknown loss {loss!r}")
+    v = vol.detach().requires_grad_(True)
+    tf = torch.as_tensor(tf_table, device=vol.device).detach()
+    tf.requires_grad_(True)
+    img = render(v, tf, camera, settings, method=method, **kw)
+    diff = img[..., :3] - torch.as_tensor(target, device=vol.device)[..., :3]
+    value = 0.5 * torch.mean(diff * diff) if loss == "l2" else \
+        torch.mean(torch.abs(diff))
+    vol_g, tf_g = torch.autograd.grad(value, (v, tf))
+    return value.detach(), (vol_g, tf_g)

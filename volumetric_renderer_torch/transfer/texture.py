@@ -12,6 +12,16 @@ from __future__ import annotations
 import torch
 
 
+def tf_lerp(n: int, t: torch.Tensor):
+    """``(lo, hi, w)`` of the CLAMP_TO_EDGE linear fetch from an ``n``-texel
+    table at ``t``: the two texels and the weight toward ``hi``."""
+    x = t * n - 0.5
+    i0 = torch.floor(x)
+    w = x - i0
+    i0 = i0.long()
+    return torch.clamp(i0, 0, n - 1), torch.clamp(i0 + 1, 0, n - 1), w
+
+
 def sample_tf(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Sample the TF table at normalized density ``t`` (any shape).
 
@@ -23,11 +33,6 @@ def sample_tf(table: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     (CLAMP_TO_EDGE).  Out-of-[0,1] coordinates (densities outside the density
     window) therefore return the edge color, like the reference.
     """
-    n = table.shape[0]
-    x = t * n - 0.5
-    i0 = torch.floor(x)
-    w = (x - i0)[..., None]
-    i0 = i0.long()
-    lo = torch.clamp(i0, 0, n - 1)
-    hi = torch.clamp(i0 + 1, 0, n - 1)
+    lo, hi, w = tf_lerp(table.shape[0], t)
+    w = w[..., None]
     return table[lo] * (1.0 - w) + table[hi] * w

@@ -1,0 +1,114 @@
+"""Observability: throughput meters, phase timing, profiler hooks.
+
+The reference's only instrumentation is a 5-sample moving-average FPS
+counter shown in the status bar (``src/application.cpp:102-122``,
+``src/ui/main_window.cpp:96-103``).  Here that becomes:
+
+* :class:`ThroughputMeter` — the same moving-average estimator, measuring
+  rays/s (the north-star metric) instead of frames/s;
+* :class:`PhaseTimers` — wall-clock spans per phase (render targets /
+  train step), aggregated into a structured report;
+* :func:`trace` — a ``torch.profiler`` trace of CPU and CUDA activity,
+  written as a Chrome trace for deep dives.
+
+The meters read wall clocks.  Work queued on a CUDA device is inside a span
+only once something in it waits for the device: the optimize loop's
+``float(loss)`` does, every step.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import logging
+import os
+import time
+from typing import Dict, Iterator, Optional
+
+import torch
+
+log = logging.getLogger("volumetric_renderer_torch")
+
+
+class ThroughputMeter:
+    """Moving-average throughput, mirroring the reference FPS counter.
+
+    The reference averages the last 5 frame intervals
+    (``src/application.cpp:102-122``, ``FRAME_COUNT = 5``); this meter
+    averages the last ``window`` (interval, items) samples and reports
+    items/s — pass rays per frame to get rays/s, or 1 to get FPS.
+    """
+
+    def __init__(self, window: int = 5):
+        self._samples = collections.deque(maxlen=window)
+        self._last: Optional[float] = None
+
+    def tick(self, items: float = 1.0) -> Optional[float]:
+        """Record one completed unit of work; returns current items/s."""
+        now = time.perf_counter()
+        if self._last is not None:
+            self._samples.append((now - self._last, items))
+        self._last = now
+        return self.rate
+
+    @property
+    def rate(self) -> Optional[float]:
+        if not self._samples:
+            return None
+        dt = sum(s[0] for s in self._samples)
+        n = sum(s[1] for s in self._samples)
+        return n / dt if dt > 0 else None
+
+
+class PhaseTimers:
+    """Named wall-clock accumulators for pipeline phases."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = collections.defaultdict(float)
+        self.counts: Dict[str, int] = collections.defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {"total_s": self.totals[k], "count": self.counts[k],
+                "mean_ms": 1e3 * self.totals[k] / max(1, self.counts[k])}
+            for k in sorted(self.totals)
+        }
+
+    def log_report(self, extra: Optional[dict] = None) -> None:
+        payload = {"phases": self.report()}
+        if extra:
+            payload.update(extra)
+        log.info("%s", json.dumps(payload))
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` span over CPU and (where present) CUDA activity;
+    writes ``logdir/trace.json`` (Chrome trace format) when it closes."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def configure_logging(level: int = logging.INFO) -> None:
+    """Structured single-line JSON-ish logging to stderr."""
+    h = logging.StreamHandler()
+    h.setFormatter(logging.Formatter(
+        '{"ts": "%(asctime)s", "lvl": "%(levelname)s", '
+        '"msg": %(message)s}'))
+    log.addHandler(h)
+    log.setLevel(level)
