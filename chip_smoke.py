@@ -10,9 +10,15 @@ against plain autograd, renders a 256^3 NRRD volume at 1920x1080 / 512 steps
 through the port's ``render_cli``, trains through ``apps.optimize`` at the
 sizes of BASELINE configs 3 (TF fit, 1920x1080) and 4 (grid inversion, 32
 views, with checkpoint and resume), and times the kernels against the plain
-versions.  Each phase prints one JSON object per line; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the run exits
-non-zero; without a CUDA device it exits non-zero before any work.
+versions.  The multi-device path (``parallel/``): both kernels on depth
+chunks (the ownership range ``own``) against their plain versions, a 512^3
+volume folded from 4 depth chunks against the whole-volume frame and its
+gradients, and, in a one-rank NCCL process group, the pixel-sharded
+config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
+--parallel pixels|depth`` at that size.  Each phase prints one JSON object
+per line; the last line is ``{"ok": true, "device": {...}}``.  Any failed
+check raises, so the run exits non-zero; without a CUDA device it exits
+non-zero before any work.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import contextlib
 import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -30,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SMALL_N, SMALL_STEPS, SMALL_HW = 64, 128, (96, 96)   # kernel-vs-plain cases
 SMALL_ATOL = 1e-5
@@ -50,6 +58,12 @@ KERNELS = {
                   "volumetric_renderer_tpu/kernels/slab.py:912"),
 }
 PLAIN_BWD_LIMIT_S = 120.0   # time the plain backward at fewer steps past it
+OWN_CHUNKS = (2, 4)     # depth chunks of the small kernel-vs-plain cases
+C5_N, C5_CHUNKS = 512, 4    # config 5: a 512^3 grid; the depth fold's chunks
+# A folded frame reassociates every composite: 1e-5 on 99.99% of pixels and
+# 1/255 everywhere, as FRAME_*; the chunk gradients against the whole-volume
+# ones within 5e-4 of the largest (tests/test_depth.py's bar).
+FOLD_GRAD_REL = 5e-4
 
 
 def emit(**obj):
@@ -109,7 +123,19 @@ def main() -> int:
     from volumetric_renderer_torch.kernels import _build
     from volumetric_renderer_torch.kernels.march import (
         load_library, march_backward, march_backward_plain, march_forward,
-        march_forward_plain,
+        march_forward_plain, make_kernel_marcher,
+    )
+    from volumetric_renderer_torch.parallel.depth import (
+        chunk_of, fold_partials,
+    )
+    from volumetric_renderer_torch.parallel.distributed import (
+        init_distributed,
+    )
+    from volumetric_renderer_torch.parallel.render import (
+        make_sharded_renderer,
+    )
+    from volumetric_renderer_torch.parallel.train import (
+        init_state, make_train_step,
     )
     from volumetric_renderer_torch.render.api import render
     from volumetric_renderer_torch.scene.camera import OrbitCamera
@@ -266,6 +292,56 @@ def main() -> int:
         check(all(e <= GRAD_ATOL for e in errs.values()),
               f"grid {n} et {et}: render grads vs oracle {errs}")
 
+    # -- 2d. K1 and K2 on depth chunks vs plain, small cases --------------
+    own_fwd_err = own_bwd_err = 0.0
+    settings = RenderSettings(height=SMALL_HW[0], width=SMALL_HW[1],
+                              step_size=1.8 / SMALL_STEPS,
+                              early_termination=False)
+    for yaw, pitch in ((30.0, 20.0), (210.0, -20.0)):   # one view each way
+        args, march = kernel_inputs(sphere, tf_ramp,
+                                    OrbitCamera.from_angles(yaw, pitch),
+                                    settings)
+        whole = march_forward(*args, **march)
+        for axis in range(3):
+            full = march_forward(chunk_of(sphere, 0, SMALL_N, axis),
+                                 *args[1:], **march,
+                                 own=(axis, 0, SMALL_N, SMALL_N))
+            check(torch.equal(full, whole), f"axis {axis}: the whole-volume "
+                  "range differs from no range")
+            for n in OWN_CHUNKS:
+                body = SMALL_N // n
+                parts, k1_err, k2_errs, k2_ok = [], 0.0, {}, True
+                for c in range(n):
+                    cargs = (chunk_of(sphere, c, body, axis),) + args[1:]
+                    own = (axis, c * body, body, SMALL_N)
+                    got = march_forward(*cargs, **march, own=own)
+                    ref = march_forward_plain(*cargs, **march, own=own)
+                    g = cotangent(SMALL_HW + (4,), 300 + c)
+                    errs, ok = max_errs(
+                        march_backward(*cargs, got, g, **march, own=own),
+                        march_backward_plain(*cargs, got, g, **march,
+                                             own=own))
+                    torch.cuda.synchronize()
+                    k1_err = max(k1_err, float((got - ref).abs().max()))
+                    k2_errs = {k: max(v, k2_errs.get(k, 0.0))
+                               for k, v in errs.items()}
+                    k2_ok = k2_ok and ok
+                    parts.append(got)
+                fold_err = float((fold_partials(torch.stack(parts), args[3],
+                                                axis) - whole).abs().max())
+                own_fwd_err = max(own_fwd_err, k1_err)
+                own_bwd_err = max(own_bwd_err, *k2_errs.values())
+                emit(phase="own_kernel_vs_plain", grid=SMALL_N,
+                     view=[yaw, pitch], axis=axis, chunks=n,
+                     shape=list(SMALL_HW), steps=settings.num_steps,
+                     k1_max_abs_err=k1_err, k1_atol=SMALL_ATOL,
+                     k2_max_abs_err=k2_errs, k2_atol=BWD_ATOL,
+                     k2_rtol=BWD_RTOL, fold_vs_whole_max_abs_err=fold_err,
+                     whole_range_bitwise=True)
+                check(k1_err <= SMALL_ATOL, f"own K1 vs plain {k1_err}")
+                check(k2_ok, f"own K2 vs plain {k2_errs}")
+                check(fold_err <= 1e-4, f"folded chunks vs whole {fold_err}")
+
     # -- 3. main path: NRRD import -> render_cli on the card --------------
     with tempfile.TemporaryDirectory() as tmp:
         nrrd = os.path.join(tmp, "head.nrrd")
@@ -371,18 +447,190 @@ def main() -> int:
               f"resumed loss {resumed['losses']} not below the first "
               f"{first['losses'][0]}")
 
+    # -- 3c. depth fold at config-5 size: 4 chunks along z, one device ---
+    vol5 = Volume.synthetic_sphere(C5_N).as_torch(dev)
+    s5 = RenderSettings(height=FRAME_H, width=FRAME_W,
+                        step_size=1.8 / FRAME_STEPS, early_termination=False)
+    cam = OrbitCamera.from_angles(30.0, 20.0)
+    args5, march5 = kernel_inputs(vol5, tf_ramp, cam, s5)
+    origin, dirs, dmin, dmax, smin, smax = frame_inputs(vol5, cam, s5)
+    body5 = C5_N // C5_CHUNKS
+    g5 = cotangent((FRAME_H, FRAME_W, 4), 11)
+
+    def fold_grads(n_chunks):
+        """The frame and its (vol, tf, dmin, dmax) gradients of sum(img*g5):
+        the whole volume (n_chunks 1, no range) or n_chunks depth chunks
+        along z, folded per ray (halo-row gradients land on their owners
+        through chunk_of's backward)."""
+        xs = [x.detach().requires_grad_(True)
+              for x in (vol5, tf_ramp, dmin, dmax)]
+        if n_chunks == 1:
+            img = make_kernel_marcher(**march5)(
+                xs[0], xs[1], origin, dirs, xs[2], xs[3], smin, smax)
+        else:
+            body = C5_N // n_chunks
+            parts = [make_kernel_marcher(
+                **march5, own=(0, c * body, body, C5_N))(
+                chunk_of(xs[0], c, body, 0), xs[1], origin, dirs, xs[2],
+                xs[3], smin, smax) for c in range(n_chunks)]
+            img = fold_partials(torch.stack(parts), dirs, 0)
+        (img * g5).sum().backward()
+        return img.detach(), [x.grad for x in xs]
+
+    whole5, grads_w = fold_grads(1)
+    folded5, grads_c = fold_grads(C5_CHUNKS)
+    torch.cuda.synchronize()
+    diff = (folded5 - whole5).abs().max(dim=-1).values
+    fold_err, fold_share = float(diff.max()), float(
+        (diff <= FRAME_ATOL).float().mean())
+    grad_err = {n: float((a - b).abs().max()) for n, a, b in
+                zip(("vol", "tf", "dmin", "dmax"), grads_c, grads_w)}
+    grad_max = {n: float(b.abs().max()) for n, b in
+                zip(("vol", "tf", "dmin", "dmax"), grads_w)}
+    emit(phase="depth_fold_config5", grid=C5_N, chunks=C5_CHUNKS, axis=0,
+         shape=[FRAME_H, FRAME_W], steps=FRAME_STEPS, early_termination=False,
+         alpha_max=float(whole5[..., 3].max()), max_abs_err=fold_err,
+         share_within_atol=fold_share, atol=FRAME_ATOL,
+         grad_max_abs_err=grad_err, grad_max_abs=grad_max,
+         grad_rel_bar=FOLD_GRAD_REL)
+    check(bool(torch.isfinite(folded5).all()), "folded frame not finite")
+    check(float(whole5[..., 3].max()) > 0.9, "config-5 frame is empty")
+    check(fold_share >= FRAME_SHARE and fold_err <= FRAME_MAX,
+          f"folded frame vs whole: {fold_err}, share {fold_share}")
+    check(all(grad_err[n] <= FOLD_GRAD_REL * grad_max[n] for n in grad_err),
+          f"chunk gradients vs whole: {grad_err} (max {grad_max})")
+    del whole5, folded5, grads_w, grads_c
+
+    # timing: K1 on the whole 512^3 grid and on each of its 4 chunks
+    k1_512_ms = cuda_ms(lambda: march_forward(*args5, **march5), 5)
+    chunk_ms = []
+    for c in range(C5_CHUNKS):
+        cargs = (chunk_of(vol5, c, body5, 0),) + args5[1:]
+        own = (0, c * body5, body5, C5_N)
+        chunk_ms.append(cuda_ms(
+            lambda: march_forward(*cargs, **march5, own=own), 5))
+        del cargs
+    emit(phase="timing_depth_chunks",
+         workload=f"{C5_N}^3 sphere, {FRAME_W}x{FRAME_H}, {FRAME_STEPS} "
+         f"steps, ET off, ntf {NTF}, {C5_CHUNKS} chunks along z", gpu=gpu,
+         nvidia_smi=smi, k1_whole_ms=k1_512_ms, k1_chunk_ms=chunk_ms,
+         k1_chunks_sum_ms=sum(chunk_ms),
+         chunks_over_whole=sum(chunk_ms) / k1_512_ms)
+
+    # -- 3d. one-rank NCCL group: the sharded frame and optimize at config 5
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rank_dev = init_distributed(f"tcp://localhost:{port}", 1, 0,
+                                device="cuda")
+    probe = torch.full((4,), 2.0, device=rank_dev)
+    dist.all_reduce(probe)      # the group's NCCL communicator works
+    torch.cuda.synchronize()
+    emit(phase="process_group", backend=dist.get_backend(),
+         world=dist.get_world_size(), rank=dist.get_rank(),
+         device=str(rank_dev), all_reduce=probe.tolist())
+    check(dist.get_backend() == "nccl" and probe.tolist() == [2.0] * 4,
+          f"process group {dist.get_backend()}: {probe.tolist()}")
+    s5_et = RenderSettings(height=FRAME_H, width=FRAME_W,
+                           step_size=1.8 / FRAME_STEPS)    # ET on
+    sharded = make_sharded_renderer(None, s5_et, row_layout="tile-cyclic")
+    march_forward.launches = 0
+    img_s = sharded(vol5, tf_ramp, cam, None, None, None, None)
+    torch.cuda.synchronize()
+    sharded_launches = march_forward.launches
+    img_r = render(vol5, tf_ramp, cam, s5_et, method="kernel")
+    diff = (img_s - img_r).abs().max(dim=-1).values
+    sh_err, sh_share = float(diff.max()), float(
+        (diff <= FRAME_ATOL).float().mean())
+    emit(phase="sharded_frame_config5", entry="parallel.render."
+         "make_sharded_renderer", row_layout="tile-cyclic", grid=C5_N,
+         shape=list(img_s.shape), steps=FRAME_STEPS, early_termination=True,
+         launches=sharded_launches, max_abs_err_vs_render_kernel=sh_err,
+         exact=sh_err == 0.0, share_within_atol=sh_share)
+    check(img_s.shape == (FRAME_H, FRAME_W, 4), f"shape {img_s.shape}")
+    check(sharded_launches == 1, f"{sharded_launches} K1 launches")
+    check(sh_share >= FRAME_SHARE and sh_err <= FRAME_MAX,
+          f"sharded frame vs render: {sh_err}, share {sh_share}")
+    main_launches["march_fwd"] += sharded_launches
+    sharded_ms = cuda_ms(lambda: sharded(vol5, tf_ramp, cam, None, None,
+                                         None, None), 5)
+    render_ms = cuda_ms(lambda: render(vol5, tf_ramp, cam, s5_et,
+                                       method="kernel"), 5)
+    del img_s, img_r
+
+    c5 = ["invert", "--grid", str(C5_N), "--size", f"{FRAME_W}x{FRAME_H}",
+          "--march-steps", str(FRAME_STEPS), "--views", "2", "--device",
+          "cuda"]
+    res, n = optimize_run(c5 + ["--parallel", "pixels", "--steps-opt", "3"],
+                          2 + 3 * 2, 3 * 2)
+    check(res["losses"][-1] < res["losses"][0],
+          f"config 5 pixels: loss did not fall: {res['losses']}")
+    c5_pixels = res
+    for k in main_launches:
+        main_launches[k] += n[k]
+    with tempfile.TemporaryDirectory() as ck:
+        dep = c5 + ["--parallel", "depth", "--ckpt-dir", ck, "--ckpt-every",
+                    "2"]
+        first, n = optimize_run(dep + ["--steps-opt", "2"], 2 + 2 * 2, 2 * 2)
+        for k in main_launches:
+            main_launches[k] += n[k]
+        resumed, n = optimize_run(dep + ["--steps-opt", "3", "--resume"],
+                                  2 + 2, 2)
+        for k in main_launches:
+            main_launches[k] += n[k]
+    check(first["losses"][-1] < first["losses"][0] and
+          resumed["start"] == 2 and
+          resumed["losses"][-1] < first["losses"][0],
+          f"config 5 depth: {first['losses']} then {resumed['losses']}")
+
+    # the config-5 step through the train step itself: one 1080p view
+    with torch.no_grad():
+        target5 = render(vol5, tf_ramp, cam, s5, method="kernel")[None]
+    fixed5 = dict(vol=vol5, tf=tf_ramp, dmin=vol5.min(), dmax=vol5.max(),
+                  smin=torch.zeros(3, device=dev),
+                  smax=torch.ones(3, device=dev))
+    step5 = make_train_step(s5, optimize_vol=True, optimize_tf=False,
+                            row_layout="tile-cyclic")
+    state5 = [init_state({"vol": torch.full_like(vol5, 0.3)},
+                         lambda p: torch.optim.Adam(p, lr=5e-2))]
+
+    def config5_step():
+        state5[0], _ = step5(state5[0], fixed5, [cam], target5)
+
+    step5_ms = cuda_ms(config5_step, 5)
+    emit(phase="timing_config5", workload=f"{C5_N}^3 sphere, {FRAME_W}x"
+         f"{FRAME_H}, {FRAME_STEPS} steps, one-rank NCCL group, tile-cyclic",
+         gpu=gpu, nvidia_smi=smi, sharded_frame_ms=sharded_ms,
+         render_kernel_frame_ms=render_ms, train_step_1view_ms=step5_ms,
+         app_pixels_step_ms=1e3 * c5_pixels["train_s"] /
+         len(c5_pixels["losses"]),
+         app_depth_step_ms=1e3 * first["train_s"] / len(first["losses"]),
+         app_pixels_rays_per_s=c5_pixels["rays_per_s"],
+         app_depth_rays_per_s=first["rays_per_s"])
+    del state5, fixed5, target5, vol5, args5
+    dist.destroy_process_group()
+
     # -- 4. timing: the bench.py workload ---------------------------------
     vol = Volume.synthetic_sphere(FRAME_N).as_torch(dev)
     cam = OrbitCamera.from_angles(30.0, 20.0)
     args, march = kernel_inputs(vol, tf_ramp, cam, settings)
     kernel_ms = cuda_ms(lambda: march_forward(*args, **march), 5)
+    # K1 with the whole-volume ownership range (a zero halo row appended)
+    whole_chunk = (chunk_of(vol, 0, FRAME_N, 0),) + args[1:]
+    whole_own = (0, 0, FRAME_N, FRAME_N)
+    own_ms = cuda_ms(lambda: march_forward(*whole_chunk, **march,
+                                           own=whole_own), 5)
+    kernel_ms_again = cuda_ms(lambda: march_forward(*args, **march), 5)
+    del whole_chunk
     frame_ms = cuda_ms(lambda: render(vol, tf_ramp, cam, settings,
                                       method="kernel"), 5)
     plain_ms = cuda_ms(lambda: march_forward_plain(*args, **march), 3)
     rays = FRAME_H * FRAME_W
     emit(phase="timing", workload=f"{FRAME_N}^3 sphere, {FRAME_W}x{FRAME_H}, "
          f"{FRAME_STEPS} steps, ET on, ntf {NTF}", gpu=gpu, nvidia_smi=smi,
-         kernel_ms=kernel_ms, plain_ms=plain_ms, frame_ms=frame_ms,
+         kernel_ms=kernel_ms, kernel_ms_again=kernel_ms_again,
+         kernel_whole_range_own_ms=own_ms, plain_ms=plain_ms,
+         frame_ms=frame_ms,
          kernel_rays_per_s=rays / (kernel_ms / 1e3),
          plain_rays_per_s=rays / (plain_ms / 1e3),
          frame_rays_per_s=rays / (frame_ms / 1e3))
@@ -460,19 +708,23 @@ def main() -> int:
         {"name": "march_fwd", "route": "cuda",
          "source": KERNELS["march_fwd"][0],
          "replaces": KERNELS["march_fwd"][1],
-         "launches": main_launches["march_fwd"], "max_abs_err": err,
+         "launches": main_launches["march_fwd"],
+         "max_abs_err": max(err, own_fwd_err),
          "ms": kernel_ms, "plain_ms": plain_ms},
         {"name": "march_bwd", "route": "cuda",
          "source": KERNELS["march_bwd"][0],
          "replaces": KERNELS["march_bwd"][1],
          "launches": main_launches["march_bwd"],
-         "max_abs_err": bwd_err if bwd_err is not None else bwd_small_err,
+         "max_abs_err": max(own_bwd_err, bwd_err if bwd_err is not None
+                            else bwd_small_err),
          "ms": k2_ms, "plain_ms": plain_bwd_ms,
          "plain_steps": plain_march["num_steps"]},
     ]}), flush=True)
+    # the devices this run used: those it allocated memory on
+    used = sum(torch.cuda.max_memory_allocated(i) > 0
+               for i in range(torch.cuda.device_count()))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": gpu,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": gpu, "count": used}}), flush=True)
     return 0
 
 

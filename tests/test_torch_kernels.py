@@ -13,12 +13,17 @@ operations in the same order and is built with -fmad=false, so the two agree
 bit for bit in practice); K2 atol 1e-4 / rtol 1e-5 (its gradients are sums
 that f32 atomics take in another order on every run); render gradients
 through K1 + K2 against oracle autograd atol 1e-4 (the oracle has no
-``ALPHA_EPS`` clamp).
+``ALPHA_EPS`` clamp).  The same bars hold on depth chunks (``own``), which
+``tests/test_torch_depth.py`` holds to the JAX package's whole-volume
+render on the CPU.
 """
 
+import ctypes
 import os
+import re
 import shutil
 import stat
+import subprocess
 
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from volumetric_renderer_torch.kernels.march import (
     march_forward,
     march_forward_plain,
 )
+from volumetric_renderer_torch.parallel.depth import chunk_of
 from volumetric_renderer_torch.render.api import render
 from volumetric_renderer_torch.scene.camera import OrbitCamera, ray_grid
 from volumetric_renderer_torch.transfer.gradient import Gradient
@@ -172,6 +178,37 @@ def test_kernel_marcher_on_cpu_is_the_fused_marcher():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+# depth chunks: (view, axis, chunks, chunk) -- one view marching each way
+OWN_CASES = [(name, axis, n, c) for name in ("orient_30_20", "orient_200_5")
+             for axis in (0, 1, 2) for n in (2, 4) for c in (0, n - 1)]
+
+
+def own_inputs(name, axis, n, c, device):
+    """Case ``name`` with its grid cut to chunk ``c`` of ``n`` along
+    ``axis``, and the chunk's ownership range."""
+    args, kw = case_inputs(name, device)
+    body = N // n
+    return ((chunk_of(args[0], c, body, axis),) + args[1:],
+            dict(kw, own=(axis, c * body, body, N)))
+
+
+@pytest.mark.parametrize("name,axis,n,c", OWN_CASES[::5])
+def test_march_with_own_on_cpu_is_the_plain_version(name, axis, n, c):
+    args, kw = own_inputs(name, axis, n, c, "cpu")
+    before = (march_forward.launches, march_backward.launches)
+    got = march_forward(*args, **kw)
+    want = march_forward_plain(*args, **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    g = cotangent(args)
+    for a, b in zip(march_backward(*args, got, g, **kw),
+                    march_backward_plain(*args, got, g, **kw)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (march_forward.launches, march_backward.launches) == before
+    bad = dict(kw, own=(axis, 0, N // n + 1, N))      # no halo row
+    with pytest.raises(ValueError, match="halo"):
+        march_forward(*args, **bad)
+
+
 def fake_nvcc(path, body):
     path.write_text("#!/bin/sh\n" + body)
     path.chmod(path.stat().st_mode | stat.S_IEXEC)
@@ -234,6 +271,97 @@ def test_march_forward_has_no_kernel_for_other_devices():
     out = torch.zeros(args[2].shape[:2] + (4,), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         march_backward(*meta, out, out, **kw)
+
+
+# -- the CUDA sources compiled for the CPU -------------------------------------
+
+SHIM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "cuda_on_cpu")
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels(tmp_path_factory):
+    """K1 and K2 from ``csrc/`` compiled by g++ against the CPU stand-in
+    for the CUDA runtime (``tests/cuda_on_cpu/cuda_runtime.h``), bound as
+    ``kernels/march.py`` binds the nvcc builds."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources for the CPU")
+    out = tmp_path_factory.mktemp("cuda_on_cpu")
+    libs = {}
+    for name in ("march_fwd", "march_bwd"):
+        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
+            src = f.read()
+        src = re.sub(r"(\w+)<<<([^,]+), ([^,]+), .*>>>\(",
+                     r"emul::Launch(\2, \3)(\1, ", src)
+        src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                     r"static \1 \2[1 << 17];", src)
+        cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
+        cpp.write_text(src)
+        proc = subprocess.run(
+            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
+             "-shared", "-pthread", f"-I{SHIM_DIR}", f"-I{_build.CSRC_DIR}",
+             "-o", str(lib), str(cpp)], capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        libs[name] = march._bind(name, ctypes.CDLL(str(lib)))
+    return libs
+
+
+def cpu_launch(libs, args, kw, out=None, g=None):
+    """K1 (``out`` None) or K2 on CPU tensors, through the C interface the
+    wrapper calls; returns what ``march_forward`` / ``march_backward``
+    would."""
+    vol, tf, pos0, dirs, hit = args[:5]
+    h, w = pos0.shape[:2]
+    own = march._own_args("cpu_launch", kw.get("own"), vol)
+    window = march._window("cpu_launch", *args[5:])
+    steps = (kw["num_steps"], kw["step_size"], int(kw["early_termination"]),
+             kw["termination_eps"], 1.0 - march.ALPHA_EPS)
+    head = (0, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
+            vol.data_ptr(), *vol.shape, *own, tf.data_ptr(), tf.shape[0])
+    if out is None:
+        res = torch.empty((h, w, 4))
+        code = libs["march_fwd"].march_fwd_launch(
+            *head, res.data_ptr(), h, w, *window, *steps, None)
+        assert code == 0
+        return res
+    g = g.contiguous()
+    vol_g = torch.zeros_like(vol)
+    tf_g = torch.zeros(tf.shape, dtype=torch.float64)
+    win_g = torch.zeros(2, dtype=torch.float64)
+    code = libs["march_bwd"].march_bwd_launch(
+        *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(),
+        tf_g.data_ptr(), win_g.data_ptr(), h, w, *window, *steps,
+        march.ALPHA_EPS, None)
+    assert code == 0
+    win_g = win_g.float()
+    return vol_g, tf_g.float(), win_g[0], win_g[1]
+
+
+@pytest.mark.parametrize("name,own", [
+    ("orient_30_20", None), ("early_termination", None), ("slicing", None),
+    ("nan_voxel", None), ("orient_30_20", (0, 2, 1)),
+    ("orient_200_5", (1, 4, 0)), ("orient_200_5", (2, 4, 3))])
+def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
+                                                     own):
+    """The CUDA sources, compiled by g++ for the CPU, against the plain
+    versions: K1 bit for bit, K2 within its bars, on the whole volume and
+    on depth chunks ``own = (axis, chunks, chunk)``."""
+    if own is None:
+        args, kw = case_inputs(name, "cpu")
+    else:
+        args, kw = own_inputs(name, *own, "cpu")
+    got = cpu_launch(cpu_kernels, args, kw)
+    want = march_forward_plain(*args, **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    g = cotangent(args)
+    for what, a, b in zip(("vol", "tf", "dmin", "dmax"),
+                          cpu_launch(cpu_kernels, args, kw, want, g),
+                          march_backward_plain(*args, want, g, **kw)):
+        assert a.shape == b.shape, what
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=what)
 
 
 @pytest.fixture
@@ -358,3 +486,36 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     huge_tf = torch.zeros((1 << 16, 4), device=cuda)   # 1 MiB of TF
     with pytest.raises(ValueError, match="shared memory"):
         march_forward(vol, huge_tf, pos0, dirs, hit, *rest, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,axis,n,c", OWN_CASES)
+def test_kernels_with_own_match_plain_on_cuda(cuda, name, axis, n, c):
+    """K1 and K2 on a depth chunk against their plain versions on it."""
+    args, kw = own_inputs(name, axis, n, c, cuda)
+    got = march_forward(*args, **kw)
+    want = march_forward_plain(*args, **kw)
+    g = cotangent(args)
+    got_b = march_backward(*args, want, g, **kw)
+    want_b = march_backward_plain(*args, want, g, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL)
+    for what, a, b in zip(("vol", "tf", "dmin", "dmax"), got_b, want_b):
+        assert a.shape == b.shape, what
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=BWD_ATOL, rtol=BWD_RTOL,
+                                   err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_kernel_whole_volume_range_equals_no_range_on_cuda(cuda, axis):
+    """``own=(axis, 0, N, N)`` on the grid plus a zero halo row: K1 equals
+    K1 without a range, bit for bit."""
+    args, kw = case_inputs("orient_120_-35", cuda)
+    whole = march_forward(*args, **kw)
+    chunk = (chunk_of(args[0], 0, N, axis),) + args[1:]
+    got = march_forward(*chunk, **kw, own=(axis, 0, N, N))
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole)

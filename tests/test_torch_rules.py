@@ -14,6 +14,13 @@ import torch
 from volumetric_renderer_torch import models
 from volumetric_renderer_torch.kernels import _build
 from volumetric_renderer_torch.kernels.march import march_forward
+from volumetric_renderer_torch.parallel.depth import (
+    make_depth_sharded_renderer,
+)
+from volumetric_renderer_torch.parallel.render import (
+    make_sharded_renderer,
+    render_distributed,
+)
 from volumetric_renderer_torch.render.api import render
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.transfer.gradient import Gradient
@@ -36,6 +43,8 @@ def test_package_renders_without_importing_jax():
         "from volumetric_renderer_torch import models\n"
         "from volumetric_renderer_torch.apps import optimize, render_cli\n"
         "from volumetric_renderer_torch.parallel import train\n"
+        "from volumetric_renderer_torch.parallel import (\n"
+        "    depth, distributed, mesh, render)\n"
         "from volumetric_renderer_torch.utils import checkpoint, convert\n"
         "from volumetric_renderer_torch.utils import metrics\n"
         "v = models.sphere(12).as_torch()\n"
@@ -81,6 +90,35 @@ def test_tpu_and_unknown_methods_raise(method):
     vol, tf, cam = small_scene()
     with pytest.raises(ValueError, match="oracle"):
         render(vol, tf, cam, SMALL, method=method)
+    with pytest.raises(ValueError, match="oracle"):
+        make_sharded_renderer(None, SMALL, method)(vol, tf, cam, None, None,
+                                                   None, None)
+
+
+def test_sharded_renderers_keep_the_rules_on_cpu():
+    """A world of one: ``method="kernel"`` on a CPU grid raises, ``"auto"``
+    runs the plain version (no launch) and equals ``render``; the depth
+    renderer wants the whole grid's window and no oracle."""
+    vol, tf, cam = small_scene()
+    with pytest.raises(ValueError, match="CUDA"):
+        make_sharded_renderer(None, SMALL, "kernel")(vol, tf, cam, None,
+                                                     None, None, None)
+    before = march_forward.launches
+    for layout in ("contiguous", "tile-cyclic"):
+        got = make_sharded_renderer(None, SMALL, row_layout=layout)(
+            vol, tf, cam, None, None, None, None)
+        np.testing.assert_array_equal(
+            got.numpy(), render(vol, tf, cam, SMALL, method="fused").numpy())
+    np.testing.assert_array_equal(
+        render_distributed(vol, tf, cam, SMALL).numpy(), got.numpy())
+    assert march_forward.launches == before
+    f = make_depth_sharded_renderer(None, SMALL, vol_shape=vol.shape, axis=0)
+    with pytest.raises(ValueError, match="window"):
+        f(vol, tf, cam, None, None, None, None)
+    oracle = make_depth_sharded_renderer(None, SMALL, vol_shape=vol.shape,
+                                         axis=0, method="oracle")
+    with pytest.raises(ValueError, match="whole volumes"):
+        oracle(vol, tf, cam, 0.0, 1.0, None, None)
 
 
 def test_cli_device_cuda_without_cuda_is_an_error(tmp_path):

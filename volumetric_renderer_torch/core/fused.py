@@ -34,6 +34,8 @@ import torch
 
 from volumetric_renderer_torch.core.marcher import prepare_rays, step_offsets
 from volumetric_renderer_torch.core.sampling import (
+    check_own,
+    chunk_owns,
     trilinear_corners,
     trilinear_sample,
 )
@@ -42,16 +44,35 @@ from volumetric_renderer_torch.transfer.texture import sample_tf, tf_lerp
 ALPHA_EPS = 1e-7
 
 
+def _active(pos, hit, smin, smax, tr, vol_shape, own, early_termination,
+            termination_eps):
+    """The steps that composite: inside the box, strictly inside the
+    slicing window, on a hit ray, owned by the depth chunk (``own``) and,
+    with early termination, where T > eps."""
+    inside = torch.all((pos >= 0.0) & (pos <= 1.0), dim=-1)
+    sliced = torch.all((pos < smax) & (pos > smin), dim=-1)
+    active = inside & sliced & hit
+    if own is not None:
+        active = active & chunk_owns(vol_shape, pos, own)
+    if early_termination:
+        active = active & (tr > termination_eps)
+    return active
+
+
 def march_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                    num_steps: int, step_size: float, early_termination: bool,
-                   termination_eps: float) -> torch.Tensor:
+                   termination_eps: float, own=None) -> torch.Tensor:
     """The forward march over prepared rays; RGBA ``dirs.shape[:-1] + (4,)``.
 
     Every step runs for every ray (masked steps add exactly 0), in the
     operation order the kernel reproduces: ``pos = pos0 + (k*dt)*dir``,
     texel coordinate ``pos*N - 0.5``, CLAMP_TO_BORDER trilinear, window
     normalisation, CLAMP_TO_EDGE TF lerp, opacity clamp, composite.
+    ``own = (axis, a_start, body, n_total)`` marches one depth chunk of a
+    larger volume and composites only the samples it owns
+    (``core.sampling.check_own``); T starts at 1 in every chunk.
     """
+    own = check_own(own, tuple(vol.shape))
     amax = 1.0 - ALPHA_EPS
     rgb = torch.zeros(dirs.shape[:-1] + (3,), dtype=torch.float32,
                       device=dirs.device)
@@ -59,13 +80,10 @@ def march_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     offsets = step_offsets(num_steps, step_size, torch.float32, dirs.device)
     for k in range(num_steps):
         pos = pos0 + offsets[k] * dirs
-        inside = torch.all((pos >= 0.0) & (pos <= 1.0), dim=-1)
-        sliced = torch.all((pos < smax) & (pos > smin), dim=-1)
-        active = inside & sliced & hit
-        if early_termination:
-            active = active & (tr > termination_eps)
+        active = _active(pos, hit, smin, smax, tr, vol.shape, own,
+                         early_termination, termination_eps)
 
-        density = trilinear_sample(vol, pos)
+        density = trilinear_sample(vol, pos, own)
         t = (density - dmin) * inv_window
         t = torch.where(active, t, 0.0)  # NaN-voxel containment
         rgba = sample_tf(tf, t)
@@ -91,20 +109,24 @@ def _dot(a, b, n=3):
 
 def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
                             smax, out, g, *, num_steps: int, step_size: float,
-                            early_termination: bool, termination_eps: float):
+                            early_termination: bool, termination_eps: float,
+                            own=None):
     """The re-march backward over prepared rays (the plain version of K2).
 
     ``out`` is the forward's RGBA and ``g`` its cotangent, both
     ``dirs.shape[:-1] + (4,)``.  Returns ``(vol_g, tf_g, dmin_g, dmax_g)``,
     operation for operation the backward of the JAX package's
     ``make_fused_marcher``, with ``T_N = 1 - out alpha`` and
-    ``G = g_rgb . out_rgb`` as its slab kernel takes them.
+    ``G = g_rgb . out_rgb`` as its slab kernel takes them.  With ``own``
+    (as :func:`march_prepared`) ``vol_g`` has the chunk's shape, its halo
+    row included.
 
     The TF-table and window gradients are sums over every ray and step
     (~1e6 terms in one TF texel at 96x96 pixels and 128 steps); f32 in an
     arbitrary order loses ~1e-4 relative there, so they are accumulated in
     float64, here and in K2, and returned as float32.
     """
+    own = check_own(own, tuple(vol.shape))
     amax = 1.0 - ALPHA_EPS
     dev = dirs.device
     n = tf.shape[0]
@@ -124,14 +146,11 @@ def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
     offsets = step_offsets(num_steps, step_size, torch.float32, dev)
     for k in range(num_steps):
         pos = pos0 + offsets[k] * dirs
-        inside = torch.all((pos >= 0.0) & (pos <= 1.0), dim=-1)
-        sliced = torch.all((pos < smax) & (pos > smin), dim=-1)
-        active = inside & sliced & hit
-        if early_termination:
-            active = active & (tr > termination_eps)
+        active = _active(pos, hit, smin, smax, tr, vol.shape, own,
+                         early_termination, termination_eps)
 
         # the forward's sample, recomputed with the same operations
-        corners = trilinear_corners(vol.shape, pos)
+        corners = trilinear_corners(vol.shape, pos, own)
         density = torch.zeros(pos.shape[:-1], dtype=vol.dtype, device=dev)
         for flat, valid, weight in corners:
             v = torch.where(valid, vol_flat[flat], 0.0)
@@ -221,15 +240,18 @@ class MarchFunction(torch.autograd.Function):
 
 
 def make_fused_marcher(num_steps: int, step_size: float,
-                       early_termination: bool, termination_eps: float):
+                       early_termination: bool, termination_eps: float,
+                       own=None):
     """A differentiable marcher specialised to static march settings, with
     the signature of the JAX package's ``make_fused_marcher``:
     ``f(vol, tf_table, origin, dirs, density_min, density_max, slice_min,
     slice_max) -> rgba``.  Forward :func:`march_prepared`, backward the
-    re-march :func:`march_backward_prepared`, on any device."""
+    re-march :func:`march_backward_prepared`, on any device.  With ``own``
+    (see :func:`march_prepared`) ``vol`` is a depth chunk and the output
+    its partial image."""
     march_kw = dict(num_steps=num_steps, step_size=step_size,
                     early_termination=early_termination,
-                    termination_eps=termination_eps)
+                    termination_eps=termination_eps, own=own)
 
     def march(vol, tf, origin, dirs, dmin, dmax, smin, smax):
         return MarchFunction.apply(march_prepared, march_backward_prepared,

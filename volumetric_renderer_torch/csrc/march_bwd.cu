@@ -23,8 +23,8 @@
 //   T *= 1 - a.
 // with G = g_rgb.rgb_out and T_fin = 1 - alpha_out from the forward's
 // output.  The early exits are K1's (box exit, T <= eps with early
-// termination, the slicing window); all are exact, because the plain
-// version adds exactly 0 on those steps.
+// termination, the slicing window, a step another depth chunk owns); all
+// are exact, because the plain version adds exactly 0 on those steps.
 //
 // Design on the card:
 //   * 16x16-pixel blocks, one thread per ray, the TF table in shared memory
@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(kTile * kTile)
     march_bwd_kernel(const float* __restrict__ pos0,
                      const float* __restrict__ dirs,
                      const unsigned char* __restrict__ hit,
-                     const float* __restrict__ vol, int nz, int ny, int nx,
+                     const float* __restrict__ vol, march::Grid grid,
                      const float* __restrict__ tf, int ntf,
                      const float* __restrict__ out,
                      const float* __restrict__ grad,
@@ -125,9 +125,9 @@ __global__ void __launch_bounds__(kTile * kTile)
       for (int k = 0; k < num_steps; ++k) {
         if (early_termination && !(tr > eps)) break;
         const int kind =
-            march::sample_step(vol, nz, ny, nx, tf_s, ntf, rr, win, k, dt, s);
+            march::sample_step(vol, grid, tf_s, ntf, rr, win, k, dt, s);
         if (kind == march::kLeftBox) break;
-        if (kind == march::kOutsideSlice) continue;
+        if (kind != march::kSampled) continue;
 
         const bool clamped = s.a > amax;
         const float a = march::clamp_alpha(s.a, amax);
@@ -179,8 +179,9 @@ __global__ void __launch_bounds__(kTile * kTile)
 #pragma unroll
               for (int cx = 0; cx < 2; ++cx) {
                 const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
-                if (march::in_grid(ix, iy, iz, nx, ny, nz)) {
-                  atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, nx, ny),
+                if (march::in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)) {
+                  atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx,
+                                                        grid.ny),
                             dl_dd * march::corner_weight(s, cx, cy, cz));
                 }
               }
@@ -240,10 +241,12 @@ const char* march_bwd_error_string(int code) {
 // out is K1's (height, width, 4) output and grad its cotangent, same shape.
 // The caller zeroes the outputs: vol_g (nz, ny, nx) f32, tf_g (ntf, 4) f64
 // and win_g (2,) f64 = (dmin_g, dmax_g).  All contiguous, float4 arrays
-// 16-byte aligned.
+// 16-byte aligned.  own_* as for march_fwd_launch: on a depth chunk, vol_g
+// has the chunk's shape, halo row included.
 int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
-                     int ny, int nx, const float* tf, int ntf,
+                     int ny, int nx, int own_axis, int own_start,
+                     int own_body, int own_total, const float* tf, int ntf,
                      const float* out, const float* grad, float* vol_g,
                      double* tf_g, double* win_g, int height, int width,
                      float dmin, float inv_w, float sx0, float sy0, float sz0,
@@ -257,10 +260,12 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
   err = march::allow_dynamic_smem(march_bwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const march::Window win{dmin, inv_w, sx0, sy0, sz0, sx1, sy1, sz1};
+  const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
+                                             own_body, own_total);
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
   march_bwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos0, dirs, hit, vol, nz, ny, nx, tf, ntf, out, grad, vol_g, tf_g,
+      pos0, dirs, hit, vol, vgrid, tf, ntf, out, grad, vol_g, tf_g,
       win_g, height, width, win, num_steps, dt, early_termination, eps, amax,
       alpha_eps);
   return static_cast<int>(cudaGetLastError());

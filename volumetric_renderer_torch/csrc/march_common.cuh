@@ -16,6 +16,17 @@
 //   trilinear fetch at pos*N - 0.5, corners summed in the order z, y, x,
 //   CLAMP_TO_BORDER (a corner outside the grid reads 0);
 //   t = (d - dmin) * inv_w;  TF lerp at t*ntf - 0.5, CLAMP_TO_EDGE.
+//
+// Depth chunks (parallel/depth.py): the grid may be one chunk of a larger
+// volume, split along one array axis.  The chunk holds `body` rows of the
+// whole volume from row `a_start` on, plus one halo row (the next chunk's
+// first row, zeros after the last chunk).  The texel coordinate along that
+// axis is taken with the whole volume's extent, exactly as for the whole
+// volume, and only the integer corner index is shifted into the chunk, so
+// every sample a chunk takes is bit-identical to the whole-volume sample.
+// A chunk takes only the samples whose lower corner along the axis lies in
+// [a_start, a_start + body); the chunk with a_start == 0 also takes corner
+// -1 (the transparent-black border before row 0).
 
 #pragma once
 
@@ -28,7 +39,33 @@ namespace march {
 // One thread per ray, 16x16-pixel blocks.
 constexpr int kTile = 16;
 
-enum StepKind { kLeftBox = 0, kOutsideSlice = 1, kSampled = 2 };
+enum StepKind { kLeftBox = 0, kOutsideSlice = 1, kSampled = 2, kNotOwned = 3 };
+
+// The grid a kernel reads: the whole volume (own_axis < 0) or one depth
+// chunk of it.
+struct Grid {
+  int nz, ny, nx;       // extents of the array in memory
+  int gz, gy, gx;       // extents of the whole volume (texel coordinates)
+  int own_axis;         // -1, or the array axis of the chunks: 0 z, 1 y, 2 x
+  int own_lo, own_hi;   // lower corners taken along own_axis: [lo, hi)
+  int a_start;          // whole-volume index of the chunk's row 0
+};
+
+// A grid of extents (nz, ny, nx).  own_axis < 0: the whole volume.  Else
+// the array is a chunk of `own_body` + 1 rows along own_axis, starting at
+// row `own_start` of a volume of `own_total` rows along that axis.
+inline Grid make_grid(int nz, int ny, int nx, int own_axis, int own_start,
+                      int own_body, int own_total) {
+  Grid g{nz, ny, nx, nz, ny, nx, -1, 0, 0, 0};
+  if (own_axis >= 0) {
+    (own_axis == 0 ? g.gz : own_axis == 1 ? g.gy : g.gx) = own_total;
+    g.own_axis = own_axis;
+    g.own_lo = own_start == 0 ? -1 : own_start;
+    g.own_hi = own_start + own_body;
+    g.a_start = own_start;
+  }
+  return g;
+}
 
 struct Ray {
   float ox, oy, oz;  // box entry point pos0
@@ -42,7 +79,8 @@ struct Window {
 };
 
 struct Sample {
-  int x0, y0, z0;     // lower trilinear corner (may lie outside the grid)
+  int x0, y0, z0;     // lower trilinear corner in the array (may lie
+                      // outside it)
   float wx, wy, wz;   // lerp weights toward the +1 corner
   float t;            // normalised density
   int lo, hi;         // TF texels of the lerp
@@ -70,12 +108,12 @@ __device__ __forceinline__ float corner_weight(const Sample& s, int cx,
 
 // Samples step k of `ray`.  Returns kLeftBox once the position has left
 // the unit cube (it never re-enters: each coordinate is monotone in k under
-// round-to-nearest), kOutsideSlice outside the slicing window, and
-// kSampled with `s` filled in otherwise.  `tf_s` is the (ntf, 4) table.
+// round-to-nearest), kOutsideSlice outside the slicing window, kNotOwned
+// where another depth chunk takes the sample, and kSampled with `s` filled
+// in otherwise.  `tf_s` is the (ntf, 4) table.
 __device__ __forceinline__ int sample_step(
-    const float* __restrict__ vol, int nz, int ny, int nx,
-    const float* tf_s, int ntf, const Ray& ray, const Window& win, int k,
-    float dt, Sample& s) {
+    const float* __restrict__ vol, const Grid& grid, const float* tf_s,
+    int ntf, const Ray& ray, const Window& win, int k, float dt, Sample& s) {
   const float kdt = static_cast<float>(k) * dt;
   const float x = ray.ox + kdt * ray.dx, y = ray.oy + kdt * ray.dy,
               z = ray.oz + kdt * ray.dz;
@@ -88,9 +126,9 @@ __device__ __forceinline__ int sample_step(
     return kOutsideSlice;
   }
 
-  const float fx = x * static_cast<float>(nx) - 0.5f,
-              fy = y * static_cast<float>(ny) - 0.5f,
-              fz = z * static_cast<float>(nz) - 0.5f;
+  const float fx = x * static_cast<float>(grid.gx) - 0.5f,
+              fy = y * static_cast<float>(grid.gy) - 0.5f,
+              fz = z * static_cast<float>(grid.gz) - 0.5f;
   const float x0f = floorf(fx), y0f = floorf(fy), z0f = floorf(fz);
   s.wx = fx - x0f;
   s.wy = fy - y0f;
@@ -98,6 +136,11 @@ __device__ __forceinline__ int sample_step(
   s.x0 = static_cast<int>(x0f);
   s.y0 = static_cast<int>(y0f);
   s.z0 = static_cast<int>(z0f);
+  if (grid.own_axis >= 0) {
+    int& c = grid.own_axis == 0 ? s.z0 : grid.own_axis == 1 ? s.y0 : s.x0;
+    if (c < grid.own_lo || c >= grid.own_hi) return kNotOwned;
+    c -= grid.a_start;
+  }
   float density = 0.0f;
 #pragma unroll
   for (int cz = 0; cz < 2; ++cz) {
@@ -106,9 +149,10 @@ __device__ __forceinline__ int sample_step(
 #pragma unroll
       for (int cx = 0; cx < 2; ++cx) {
         const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
-        const float v = in_grid(ix, iy, iz, nx, ny, nz)
-                            ? __ldg(vol + voxel_offset(ix, iy, iz, nx, ny))
-                            : 0.0f;
+        const float v =
+            in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)
+                ? __ldg(vol + voxel_offset(ix, iy, iz, grid.nx, grid.ny))
+                : 0.0f;
         density = density + v * corner_weight(s, cx, cy, cz);
       }
     }

@@ -10,7 +10,9 @@
 // What it computes, per ray, for k = 0 .. num_steps-1 (the contract of
 // core/fused.py:march_prepared, which is this kernel's plain version):
 //   sample step k as march_common.cuh:sample_step does (position, box and
-//   slicing tests, trilinear, window, TF lerp);
+//   slicing tests, the depth-chunk ownership test, trilinear, window, TF
+//   lerp); a step another chunk owns is skipped like one outside the
+//   slicing window;
 //   a = min(rgba.a, amax);  rgb += T*a*rgba.rgb;  T *= 1 - a;
 //   with early termination, stop once T <= eps.
 // Output: (rgb, 1 - T) on hit rays, (0, 0, 0, 0) on misses.
@@ -48,7 +50,7 @@ __global__ void __launch_bounds__(kTile * kTile)
     march_fwd_kernel(const float* __restrict__ pos0,
                      const float* __restrict__ dirs,
                      const unsigned char* __restrict__ hit,
-                     const float* __restrict__ vol, int nz, int ny, int nx,
+                     const float* __restrict__ vol, march::Grid grid,
                      const float* __restrict__ tf, int ntf,
                      float* __restrict__ out, int height, int width,
                      march::Window win, int num_steps, float dt,
@@ -72,9 +74,9 @@ __global__ void __launch_bounds__(kTile * kTile)
     for (int k = 0; k < num_steps; ++k) {
       if (early_termination && !(tr > eps)) break;
       const int kind =
-          march::sample_step(vol, nz, ny, nx, tf_s, ntf, rr, win, k, dt, s);
+          march::sample_step(vol, grid, tf_s, ntf, rr, win, k, dt, s);
       if (kind == march::kLeftBox) break;
-      if (kind == march::kOutsideSlice) continue;
+      if (kind != march::kSampled) continue;
       const float a = march::clamp_alpha(s.a, amax);
       const float ta = tr * a;
       r = r + ta * s.r;
@@ -106,23 +108,29 @@ const char* march_fwd_error_string(int code) {
 // pointers are device pointers; pos0 and dirs are (height*width, 3), hit is
 // (height*width,) of 0/1 bytes, vol is (nz, ny, nx), tf is (ntf, 4) and out
 // is (height, width, 4), all contiguous and 16-byte aligned where float4.
+// own_axis < 0 marches the whole volume; else vol is the depth chunk that
+// march_common.cuh:make_grid describes (own_start, own_body, own_total).
 int march_fwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
-                     int ny, int nx, const float* tf, int ntf, float* out,
-                     int height, int width, float dmin, float inv_w, float sx0,
-                     float sy0, float sz0, float sx1, float sy1, float sz1,
-                     int num_steps, float dt, int early_termination,
-                     float eps, float amax, void* stream) {
+                     int ny, int nx, int own_axis, int own_start,
+                     int own_body, int own_total, const float* tf, int ntf,
+                     float* out, int height, int width, float dmin,
+                     float inv_w, float sx0, float sy0, float sz0, float sx1,
+                     float sy1, float sz1, int num_steps, float dt,
+                     int early_termination, float eps, float amax,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(ntf) * 4 * sizeof(float);
   err = march::allow_dynamic_smem(march_fwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const march::Window win{dmin, inv_w, sx0, sy0, sz0, sx1, sy1, sz1};
+  const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
+                                             own_body, own_total);
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
   march_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos0, dirs, hit, vol, nz, ny, nx, tf, ntf, out, height, width, win,
+      pos0, dirs, hit, vol, vgrid, tf, ntf, out, height, width, win,
       num_steps, dt, early_termination, eps, amax);
   return static_cast<int>(cudaGetLastError());
 }

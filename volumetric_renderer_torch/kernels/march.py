@@ -28,6 +28,7 @@ from volumetric_renderer_torch.core.fused import (
     march_backward_prepared,
     march_prepared,
 )
+from volumetric_renderer_torch.core.sampling import check_own
 from volumetric_renderer_torch.kernels import _build
 
 #: The plain versions: same inputs, same operations in the same order.
@@ -41,11 +42,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of kernel library ``name`` on ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "march_fwd":
-        launch = [i, p, p, p, p, i, i, i, p, i, p, i, i,  # device .. width
+        launch = [i, p, p, p, p, i, i, i,       # device .. nx
+                  i, i, i, i,                   # own: axis, start, body, total
+                  p, i, p, i, i,                # tf .. width
                   f, f, f, f, f, f, f, f,       # dmin, inv_w, smin, smax
                   i, f, i, f, f, p]             # steps .. amax, stream
     else:
-        launch = [i, p, p, p, p, i, i, i, p, i,  # device .. ntf
+        launch = [i, p, p, p, p, i, i, i,        # device .. nx
+                  i, i, i, i,                    # own: axis, start, body, total
+                  p, i,                          # tf, ntf
                   p, p, p, p, p, i, i,           # out .. width
                   f, f, f, f, f, f, f, f,        # dmin, inv_w, smin, smax
                   i, f, i, f, f, f, p]           # steps .. alpha_eps, stream
@@ -87,8 +92,9 @@ def _device_of(fn: str, tensors: dict) -> torch.device:
 
 def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
                          name: str, device) -> tuple:
-    """The checks every launch makes: types, contiguity, shapes, int range
-    and shared memory.  Returns ``(lib, device index, height, width)``."""
+    """The checks every launch makes: types, contiguity, shapes, int and
+    launch-grid range and shared memory.  Returns ``(lib, device index,
+    height, width)``."""
     for key, t in tensors.items():
         want = torch.bool if key == "hit" else torch.float32
         if t.dtype != want:
@@ -118,6 +124,9 @@ def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
     if max(*vol.shape, height, width) >= 2 ** 31:
         raise ValueError(f"{fn}: a dimension past 2^31 - 1 does not fit the "
                          "kernel's int arguments")
+    if -(-height // 16) > 65535:
+        raise ValueError(f"{fn}: {height} rows need more than the 65535 "
+                         "blocks a launch grid has along y")
 
     lib = load_library(name)
     dev_index = device.index if device.index is not None else \
@@ -147,17 +156,32 @@ def _window(fn: str, dmin, inv_window, smin, smax) -> list:
             + _floats(fn, smin, 3) + _floats(fn, smax, 3))
 
 
+def _own_args(fn: str, own, vol) -> tuple:
+    """The kernel's ``(own_axis, own_start, own_body, own_total)``:
+    ``(-1, 0, 0, 0)`` for the whole volume."""
+    try:
+        own = check_own(own, tuple(vol.shape))
+    except ValueError as e:
+        raise ValueError(f"{fn}: {e}") from None
+    return (-1, 0, 0, 0) if own is None else own
+
+
 def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                   num_steps: int, step_size: float, early_termination: bool,
-                  termination_eps: float) -> torch.Tensor:
+                  termination_eps: float, own=None) -> torch.Tensor:
     """K1: march prepared rays: ``pos0``/``dirs`` ``(H, W, 3)``, ``hit``
     ``(H, W)`` bool; returns RGBA ``(H, W, 4)`` float32.
 
     ``dmin`` and ``inv_window`` are scalars and ``smin``/``smax`` 3-vectors
-    (tensors or numbers).  On CUDA every tensor must be float32 (``hit``
-    bool) and contiguous, on one device.  The output carries no graph:
-    under grad mode, inputs that require grad raise; differentiate through
-    :func:`make_kernel_marcher` (``render(method="kernel")``) instead.
+    (tensors or numbers).  ``own = (axis, a_start, body, n_total)`` marches
+    one depth chunk: ``vol`` is rows ``a_start .. a_start + body`` (the last
+    one the halo) of a volume of ``n_total`` rows along array axis
+    ``axis``, and only the samples the chunk owns are composited
+    (``core.sampling.check_own``).  On CUDA every tensor must be float32
+    (``hit`` bool) and contiguous, on one device.  The output carries no
+    graph: under grad mode, inputs that require grad raise; differentiate
+    through :func:`make_kernel_marcher` (``render(method="kernel")``)
+    instead.
     """
     fn = "march_forward"
     tensors = {"vol": vol, "tf": tf, "pos0": pos0, "dirs": dirs, "hit": hit}
@@ -167,7 +191,7 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
             vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             num_steps=num_steps, step_size=step_size,
             early_termination=early_termination,
-            termination_eps=termination_eps)
+            termination_eps=termination_eps, own=own)
 
     if torch.is_grad_enabled():
         for key, x in {**tensors, "dmin": dmin, "inv_window": inv_window,
@@ -180,6 +204,7 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                     "backward is the K2 kernel (march_backward)")
     lib, dev_index, height, width = _check_kernel_inputs(
         fn, tensors, 16, "march_fwd", device)
+    own = _own_args(fn, own, vol)
     window = _window(fn, dmin, inv_window, smin, smax)
 
     out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
@@ -187,7 +212,7 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     nz, ny, nx = vol.shape
     code = lib.march_fwd_launch(
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-        vol.data_ptr(), nz, ny, nx, tf.data_ptr(), tf.shape[0],
+        vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
         out.data_ptr(), height, width, *window,
         int(num_steps), float(step_size), int(bool(early_termination)),
         float(termination_eps), 1.0 - ALPHA_EPS, stream)
@@ -198,15 +223,17 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
 
 def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
                    out, g, *, num_steps: int, step_size: float,
-                   early_termination: bool, termination_eps: float):
+                   early_termination: bool, termination_eps: float,
+                   own=None):
     """K2: the re-march backward of :func:`march_forward` over the same
     prepared rays, given its output ``out`` and the cotangent ``g`` (both
     ``(H, W, 4)``).  Returns ``(vol_g, tf_g, dmin_g, dmax_g)``: the grid
-    gradient ``(Z, Y, X)``, the TF gradient ``(N, 4)`` and two scalars.
+    gradient with ``vol``'s shape (a chunk's halo row included), the TF
+    gradient ``(N, 4)`` and two scalars.
 
-    The same checks as :func:`march_forward`; ``g`` is made contiguous.  On
-    CUDA the gradients come from f32 atomics, so they are not bitwise
-    repeatable.
+    The same checks and the same ``own`` as :func:`march_forward`; ``g`` is
+    made contiguous.  On CUDA the gradients come from f32 atomics, so they
+    are not bitwise repeatable.
     """
     fn = "march_backward"
     g = g.detach().contiguous()
@@ -218,10 +245,11 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, out, g,
             num_steps=num_steps, step_size=step_size,
             early_termination=early_termination,
-            termination_eps=termination_eps)
+            termination_eps=termination_eps, own=own)
 
     lib, dev_index, height, width = _check_kernel_inputs(
         fn, tensors, 48, "march_bwd", device)
+    own = _own_args(fn, own, vol)
     window = _window(fn, dmin, inv_window, smin, smax)
 
     # the TF and window gradients are accumulated in f64, as in the plain
@@ -233,7 +261,7 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
     nz, ny, nx = vol.shape
     code = lib.march_bwd_launch(
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-        vol.data_ptr(), nz, ny, nx, tf.data_ptr(), tf.shape[0],
+        vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
         out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
         win_g.data_ptr(), height, width, *window,
         int(num_steps), float(step_size), int(bool(early_termination)),
@@ -251,14 +279,16 @@ march_backward.launches = 0
 
 
 def make_kernel_marcher(num_steps: int, step_size: float,
-                        early_termination: bool, termination_eps: float):
+                        early_termination: bool, termination_eps: float,
+                        own=None):
     """The differentiable kernel marcher: ``f(vol, tf_table, origin, dirs,
     density_min, density_max, slice_min, slice_max) -> rgba`` with K1
     (:func:`march_forward`) as its forward and K2 (:func:`march_backward`)
-    as its backward; the signature of ``core.fused.make_fused_marcher``."""
+    as its backward; the signature of ``core.fused.make_fused_marcher``,
+    ``own`` included."""
     march_kw = dict(num_steps=num_steps, step_size=step_size,
                     early_termination=early_termination,
-                    termination_eps=termination_eps)
+                    termination_eps=termination_eps, own=own)
 
     def march(vol, tf, origin, dirs, dmin, dmax, smin, smax):
         return MarchFunction.apply(march_forward, march_backward, march_kw,

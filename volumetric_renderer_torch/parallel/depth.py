@@ -1,0 +1,239 @@
+"""Depth-sharded rendering: the voxel grid split into chunks over the ranks.
+
+The pixel-sharded design (``parallel/render``) keeps the whole grid on
+every rank.  Here each rank holds ``body = n / world`` rows of the grid
+along one array axis, and with them that chunk's gradient and Adam
+moments.  It rests on one fact: **front-to-back compositing over disjoint
+segments of a ray is associative.**  With premultiplied partials
+``(rgb, alpha)``,
+
+    front OVER back = (rgb_f + (1 - alpha_f) * rgb_b,
+                       1 - (1 - alpha_f) * (1 - alpha_b))
+
+so each rank renders the partial image of the samples its chunk owns, and
+the partials fold in march order.  On each rank:
+
+1. hold the body rows; take one halo row from rank + 1 (the trilinear +1
+   corner) with one ``send``/``recv`` pair; the last rank's halo is zeros,
+   the transparent-black border;
+2. march every ray with the ownership range ``own = (axis, rank * body,
+   body, n)`` (K1 on CUDA, its plain version on the CPU): a sample counts
+   where its lower corner along ``axis`` lies in the chunk;
+3. ``all_gather`` the ``(H, W, 4)`` partials and fold them **per ray**:
+   ascending chunk order where the ray's direction along ``axis`` is
+   >= 0, descending where it is < 0.  A ray-major kernel has no slab
+   orientation, so views may march along any axis, either way.
+
+Backward: the grid gradient stays on its rank, and the halo row's gradient
+goes back to rank + 1's first body row (the transpose of the halo
+exchange); the TF and window gradients are summed across the ranks once.
+
+Early termination inside a chunk uses the chunk's own T, starting at 1 (as
+in the JAX package), so depth-sharded renders run with it off.  Callers
+pass the global density window (:func:`global_window`): a chunk's own
+``min``/``max`` is not the volume's.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from volumetric_renderer_torch.core.marcher import frame_inputs
+from volumetric_renderer_torch.parallel.mesh import group_info
+from volumetric_renderer_torch.parallel.render import gather_blocks, sum_across
+from volumetric_renderer_torch.render.api import make_marcher, select_method
+from volumetric_renderer_torch.utils import quaternion as quat
+from volumetric_renderer_torch.utils.config import RenderSettings
+
+
+def over(front: torch.Tensor, back: torch.Tensor) -> torch.Tensor:
+    """Associative over-operator on premultiplied ``(..., 4)`` partials."""
+    t = 1.0 - front[..., 3:4]
+    rgb = front[..., :3] + t * back[..., :3]
+    alpha = 1.0 - t[..., 0] * (1.0 - back[..., 3])
+    return torch.cat([rgb, alpha[..., None]], dim=-1)
+
+
+def composite_chunks(partials, reverse: bool = False) -> torch.Tensor:
+    """Fold partial images in march order (ascending chunk index, or
+    descending when the march runs toward -axis)."""
+    order = range(len(partials))
+    if reverse:
+        order = reversed(order)
+    out = None
+    for i in order:
+        out = partials[i] if out is None else over(out, partials[i])
+    return out
+
+
+def fold_partials(partials: torch.Tensor, dirs: torch.Tensor,
+                  axis: int) -> torch.Tensor:
+    """Fold ``(n, H, W, 4)`` chunk partials per ray: ascending chunk order
+    where the ray's direction along array axis ``axis`` (0 z, 1 y, 2 x) is
+    >= 0, descending where it is < 0.  On a view whose rays all march one
+    way this is :func:`composite_chunks` with ``reverse`` set to match."""
+    n = partials.shape[0]
+    backward = (dirs[..., 2 - axis] < 0.0)[..., None]
+    out = None
+    for i in range(n):
+        p = torch.where(backward, partials[n - 1 - i], partials[i])
+        out = p if out is None else over(out, p)
+    return out
+
+
+def chunk_of(vol: torch.Tensor, c: int, body: int, axis: int) -> torch.Tensor:
+    """Chunk ``c``: rows ``[c*body, (c+1)*body)`` of ``vol`` along ``axis``
+    plus the halo row ``(c+1)*body``, zeros past the end of the volume."""
+    n = vol.shape[axis]
+    lo = c * body
+    rows = vol.narrow(axis, lo, min(body + 1, n - lo))
+    if rows.shape[axis] < body + 1:
+        pad = list(rows.shape)
+        pad[axis] = body + 1 - rows.shape[axis]
+        rows = torch.cat([rows, rows.new_zeros(pad)], dim=axis)
+    return rows.contiguous()
+
+
+def body_rows(vol_shape, axis: int, world: int) -> int:
+    """Rows of each chunk; raises unless ``world`` divides the extent."""
+    na = vol_shape[axis]
+    if na % world != 0:
+        raise ValueError(f"grid a-extent {na} must divide the depth mesh "
+                         f"({world}); pad the volume")
+    return na // world
+
+
+def split_rows(vol: torch.Tensor, axis: int, group=None) -> torch.Tensor:
+    """This rank's body rows of the whole grid ``vol`` (a contiguous copy)."""
+    _, rank, world = group_info(group)
+    body = body_rows(vol.shape, axis, world)
+    return vol.narrow(axis, rank * body, body).contiguous()
+
+
+def gather_rows(local: torch.Tensor, axis: int, group=None, dst: int = 0):
+    """The whole grid from every rank's body rows, on rank ``dst`` only
+    (``gather``; the other ranks get None and never hold the whole grid)."""
+    group, rank, world = group_info(group)
+    if world == 1:
+        return local
+    parts = [torch.empty_like(local) for _ in range(world)] \
+        if rank == dst else None
+    dist.gather(local.contiguous(), parts, dst=_peer(group, dst),
+                group=group)
+    return torch.cat(parts, dim=axis) if rank == dst else None
+
+
+def global_window(local: torch.Tensor, group=None) -> tuple:
+    """``(min, max)`` of the whole grid from every rank's rows
+    (``all_reduce`` MIN and MAX): the density window of a depth-sharded
+    render."""
+    group, _, world = group_info(group)
+    lo, hi = local.min().detach().clone(), local.max().detach().clone()
+    if world > 1:
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    return lo, hi
+
+
+def dominant_axis(cameras) -> int:
+    """The array axis (0 z, 1 y, 2 x) the views look along most: the
+    coordinate with the largest sum over views of ``|forward|``, the unit
+    vector from the eye to the orbit centre."""
+    total = None
+    for cam in cameras:
+        fwd = quat.rotate_vector(cam.orientation, [0.0, -1.0, 0.0]).abs()
+        total = fwd if total is None else total + fwd
+    return 2 - int(torch.argmax(total))
+
+
+def _peer(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def _exchange(send, recv, group, rank: int, world: int, to_lower: bool):
+    """Send ``send`` to the neighbour rank below (``to_lower``) or above,
+    and fill ``recv`` from the other neighbour; the ends skip the missing
+    side."""
+    dst, src = (rank - 1, rank + 1) if to_lower else (rank + 1, rank - 1)
+    ops = []
+    if 0 <= dst < world:
+        ops.append(dist.P2POp(dist.isend, send, _peer(group, dst), group))
+    if 0 <= src < world:
+        ops.append(dist.P2POp(dist.irecv, recv, _peer(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return 0 <= src < world
+
+
+class _HaloExchange(torch.autograd.Function):
+    """Body rows -> chunk (body rows + the halo row from rank + 1).  The
+    backward sends the halo row's gradient back to rank + 1, which adds it
+    to its first body row."""
+
+    @staticmethod
+    def forward(ctx, local, axis, group, rank, world):
+        ctx.axis, ctx.group, ctx.rank, ctx.world = axis, group, rank, world
+        first = local.narrow(axis, 0, 1).contiguous()
+        halo = torch.zeros_like(first)
+        _exchange(first, halo, group, rank, world, to_lower=True)
+        return torch.cat([local, halo], dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        body = g.shape[axis] - 1
+        g_local = g.narrow(axis, 0, body).clone()
+        g_halo = g.narrow(axis, body, 1).contiguous()
+        back = torch.empty_like(g_halo)
+        if _exchange(g_halo, back, ctx.group, ctx.rank, ctx.world,
+                     to_lower=False):
+            g_local.narrow(axis, 0, 1).add_(back)
+        return g_local, None, None, None, None
+
+
+def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
+                                axis: int, method: str = "auto",
+                                reduce_grads: bool = True):
+    """Build ``f(vol_local, tf, camera, dmin, dmax, smin, smax) -> (H, W,
+    4)`` with the VOXEL GRID split over the ranks of ``group`` along array
+    axis ``axis`` (0 z, 1 y, 2 x).
+
+    ``vol_shape`` is the whole grid's shape; ``vol_local`` is this rank's
+    body rows (:func:`split_rows`).  Every rank returns the whole folded
+    image.  ``dmin``/``dmax`` are required: pass the whole grid's window
+    (:func:`global_window`).  ``method`` is ``"auto"``, ``"fused"`` or
+    ``"kernel"``.  The TF and window gradients are summed across the ranks
+    once, in the backward, unless ``reduce_grads=False`` leaves that to the
+    caller; the grid gradient stays with its rows.
+    """
+    vol_shape = tuple(int(v) for v in vol_shape)
+    group, rank, world = group_info(group)
+    body = body_rows(vol_shape, axis, world)
+    own = (axis, rank * body, body, vol_shape[axis])
+    local_shape = tuple(body if i == axis else d
+                        for i, d in enumerate(vol_shape))
+
+    def render_fn(vol_local, tf, camera, dmin, dmax, smin, smax):
+        if tuple(vol_local.shape) != local_shape:
+            raise ValueError(f"this rank holds {local_shape} of the "
+                             f"{vol_shape} grid, got "
+                             f"{tuple(vol_local.shape)}")
+        if dmin is None or dmax is None:
+            raise ValueError("a depth-sharded render needs the whole grid's "
+                             "density window (global_window)")
+        march = make_marcher(select_method(method, vol_local), settings, own)
+        origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+            vol_local, camera, settings, dmin, dmax, smin, smax)
+        if world > 1:
+            chunk = _HaloExchange.apply(vol_local, axis, group, rank, world)
+        else:
+            chunk = chunk_of(vol_local, 0, body, axis)   # a zero halo row
+        if reduce_grads:
+            tf, dmin, dmax = (sum_across(x, group) for x in (tf, dmin, dmax))
+        partial = march(chunk, tf, origin, dirs, dmin, dmax, smin, smax)
+        parts = gather_blocks(partial[None], group)
+        return fold_partials(parts, dirs, axis)
+
+    return render_fn

@@ -1,0 +1,149 @@
+"""Pixel-sharded rendering and its gradients over a process group.
+
+The reference's implicit parallelism (every fragment independent,
+``res/shaders/volume.frag:21-51``) becomes ranks that each march their own
+block of the packed image (``parallel/mesh.make_layout``).  The voxel grid
+and the TF table are replicated on every rank.  The forward needs one
+``all_gather`` only to give every rank the whole image; the backward sums
+the grid, TF and window gradients across ranks.
+
+``torch.distributed`` collectives carry no autograd, so both reductions are
+written out, each applied exactly once (a reduction placed twice gives a
+world-size multiple of the gradient, the trap the JAX package hit under
+``shard_map``, ``volumetric_renderer_tpu/parallel/render.py:63-71``):
+
+* :func:`gather_blocks` — ``all_gather`` of each rank's block; its backward
+  keeps this rank's part of the cotangent.  That is right when the loss is
+  computed from the gathered output identically on every rank, as a
+  replicated loss is.
+* :func:`sum_across` — the identity; its backward sums the cotangent over
+  the ranks (``all_reduce``).  It marks a replicated input whose uses are
+  split over the ranks.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from volumetric_renderer_torch.core.marcher import frame_inputs
+from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
+from volumetric_renderer_torch.render.api import make_marcher, select_method
+from volumetric_renderer_torch.utils.config import RenderSettings
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, group, rank, world):
+        ctx.rank, ctx.rows = rank, block.shape[0]
+        parts = [torch.empty_like(block) for _ in range(world)]
+        dist.all_gather(parts, block.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.rows
+        return g[lo:lo + ctx.rows], None, None, None
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def gather_blocks(block: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``block`` (equal shapes) concatenated in rank order
+    along dim 0; differentiable (see the module docstring)."""
+    group, rank, world = group_info(group)
+    if world == 1:
+        return block
+    return _GatherBlocks.apply(block, group, rank, world)
+
+
+def sum_across(x, group=None):
+    """``x`` itself; its gradient is summed across the ranks of ``group``
+    (see the module docstring).  A tensor that needs no gradient passes
+    through."""
+    _, _, world = group_info(group)
+    if world == 1 or not (torch.is_tensor(x) and x.requires_grad):
+        return x
+    return _SumAcross.apply(x, group)
+
+
+def all_reduce_grads(tensors, group=None) -> None:
+    """Sum the ``.grad`` of each tensor across ``group``, in place."""
+    _, _, world = group_info(group)
+    if world == 1:
+        return
+    for t in tensors:
+        if t.grad is not None:
+            dist.all_reduce(t.grad, group=group)
+
+
+def make_sharded_renderer(group, settings: RenderSettings,
+                          method: str = "auto", *,
+                          row_layout: str = "contiguous",
+                          permuted_output: bool = False,
+                          reduce_grads: bool = True):
+    """Build ``f(vol, tf, camera, dmin, dmax, smin, smax) -> (H, W, 4)``
+    with the image's pixels sharded over the ranks of ``group`` (None: the
+    default group, or a world of one without one).
+
+    Every rank makes the whole ray grid (small), packs it with
+    ``row_layout`` (:func:`~volumetric_renderer_torch.parallel.mesh.
+    make_layout`), gives padded positions the inert direction ``(0, 0, 1)``
+    and marches its own block: the K1 kernel for a CUDA volume and
+    ``method="auto"``, the plain version on the CPU (``method`` as in
+    ``render``).  ``tile-cyclic`` gives each rank a ``(T*16/n, 16)`` image,
+    which the kernel tiles in exactly the original 16x16 tiles.
+
+    The output is the whole image, gathered and unpacked; with
+    ``permuted_output=True`` it is this rank's ``(gh/n, gw, 4)`` block in
+    shard order (what the train step's loss takes).  ``vol``, ``tf`` and
+    the density window are replicated: their gradients are summed across
+    the ranks once, in the backward, unless ``reduce_grads=False`` leaves
+    that to the caller (the train step sums once after all its views).
+    """
+    _, rank, world = group_info(group)
+    h, w = settings.height, settings.width
+    gh, gw, pack, unpack, valid = make_layout(row_layout, h, w, world)
+    rows = gh // world
+    padded = (gh, gw) != (h, w)
+
+    def render_fn(vol, tf, camera, dmin, dmax, smin, smax):
+        dev = vol.device
+        march = make_marcher(select_method(method, vol), settings)
+        origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+            vol, camera, settings, dmin, dmax, smin, smax)
+        dirs = pack(dirs)
+        if padded:
+            up = torch.tensor([0.0, 0.0, 1.0], device=dev)
+            dirs = torch.where(valid.to(dev)[..., None] > 0.0, dirs, up)
+        block = dirs[rank * rows:(rank + 1) * rows].contiguous()
+        if reduce_grads:
+            vol, tf, dmin, dmax = (sum_across(x, group)
+                                   for x in (vol, tf, dmin, dmax))
+        img = march(vol, tf, origin, block, dmin, dmax, smin, smax)
+        if permuted_output:
+            return img
+        return unpack(gather_blocks(img, group))
+
+    return render_fn
+
+
+def render_distributed(vol, tf, camera, settings: RenderSettings, group=None,
+                       *, density_min=None, density_max=None,
+                       slice_min=None, slice_max=None, method: str = "auto"):
+    """One-shot wrapper around :func:`make_sharded_renderer`, with the
+    window defaults of ``render`` (the volume's min/max, ``[0,1]^3``)."""
+    f = make_sharded_renderer(group, settings, method)
+    return f(vol, torch.as_tensor(tf, device=vol.device), camera,
+             density_min, density_max, slice_min, slice_max)

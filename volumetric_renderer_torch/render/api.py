@@ -41,6 +41,49 @@ def resolve_method(vol: torch.Tensor) -> str:
     return "kernel" if vol.device.type == "cuda" else "fused"
 
 
+def select_method(method: str, vol: torch.Tensor) -> str:
+    """``method`` checked against :data:`METHODS` and resolved for ``vol``'s
+    device: ``"oracle"``, ``"fused"`` or ``"kernel"``."""
+    if method in ("blocked", "slab", "pallas"):
+        raise ValueError(
+            f"method={method!r} is a TPU path of the JAX package; this "
+            f"port's methods are {METHODS}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{METHODS}")
+    if method == "auto":
+        method = resolve_method(vol)
+    if method == "kernel" and vol.device.type != "cuda":
+        raise ValueError("method='kernel' launches the CUDA kernel and needs "
+                         f"a CUDA volume, got one on {vol.device}; use "
+                         "'fused' or 'auto' on the CPU")
+    return method
+
+
+def make_marcher(method: str, settings: RenderSettings, own=None):
+    """The differentiable marcher ``f(vol, tf, origin, dirs, dmin, dmax,
+    smin, smax) -> rgba`` of a resolved ``method`` (see
+    :func:`select_method`) with ``settings``' march; ``own`` is the
+    depth-chunk range of ``core.fused.march_prepared`` (not for the
+    oracle, which marches whole volumes)."""
+    march = dict(num_steps=settings.num_steps, step_size=settings.step_size,
+                 early_termination=settings.early_termination,
+                 termination_eps=settings.termination_eps)
+    if method == "oracle":
+        if own is not None:
+            raise ValueError("method='oracle' marches whole volumes; a "
+                             "depth chunk needs 'fused' or 'kernel'")
+
+        def oracle(vol, tf, origin, dirs, dmin, dmax, smin, smax):
+            return march_rays(vol, tf, origin, dirs, density_min=dmin,
+                              density_max=dmax, slice_min=smin,
+                              slice_max=smax, **march)
+
+        return oracle
+    make = make_fused_marcher if method == "fused" else make_kernel_marcher
+    return make(**march, own=own)
+
+
 def render(
     vol: torch.Tensor,
     tf_table: torch.Tensor,
@@ -72,19 +115,7 @@ def render(
     sampler (``offscreen_pass.cpp:1076``).  The default (False) is this
     framework's linear-throughout convention.
     """
-    if method in ("blocked", "slab", "pallas"):
-        raise ValueError(
-            f"method={method!r} is a TPU path of the JAX package; this "
-            f"port's methods are {METHODS}")
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}; expected one of "
-                         f"{METHODS}")
-    if method == "auto":
-        method = resolve_method(vol)
-    if method == "kernel" and vol.device.type != "cuda":
-        raise ValueError("method='kernel' launches the CUDA kernel and needs "
-                         f"a CUDA volume, got one on {vol.device}; use "
-                         "'fused' or 'auto' on the CPU")
+    method = select_method(method, vol)
     tf_table = torch.as_tensor(tf_table, device=vol.device)
     if tf_srgb:
         from volumetric_renderer_torch.utils.color import linearize_tf_table
@@ -93,15 +124,8 @@ def render(
     origin, dirs, dmin, dmax, smin, smax = frame_inputs(
         vol, camera, settings, density_min, density_max, slice_min, slice_max
     )
-    march = dict(num_steps=settings.num_steps, step_size=settings.step_size,
-                 early_termination=settings.early_termination,
-                 termination_eps=settings.termination_eps)
-    if method == "oracle":
-        return march_rays(vol, tf_table, origin, dirs, density_min=dmin,
-                          density_max=dmax, slice_min=smin, slice_max=smax,
-                          **march)
-    make = make_fused_marcher if method == "fused" else make_kernel_marcher
-    return make(**march)(vol, tf_table, origin, dirs, dmin, dmax, smin, smax)
+    return make_marcher(method, settings)(vol, tf_table, origin, dirs, dmin,
+                                          dmax, smin, smax)
 
 
 def composite_over(rgba: torch.Tensor, background,

@@ -1,7 +1,9 @@
 """Checkpoint / resume for optimization state.
 
 The long-running workloads — TF-fit and grid inversion (BASELINE configs
-3-4) — restart from a checkpoint on failure: fail fast, then resume.
+3-5) — restart from a checkpoint on failure: fail fast, then resume.  A
+depth-sharded grid is saved whole, gathered on one rank, and split into
+the ranks' rows again on load (``gather`` / ``split``).
 
 Format: one ``torch.save`` file per step holding ``{"params": {name:
 tensor}, "optimizer": optimizer.state_dict(), "step": int}``, written
@@ -32,12 +34,42 @@ def _structure(params: dict, optimizer_state: dict) -> tuple:
                   for k, v in sorted(params.items())), groups, state)
 
 
-def save_checkpoint(path: str, state, step: Optional[int] = None) -> str:
+def _map_params(params: dict, optimizer_state: dict, fns: dict) -> dict:
+    """Apply ``fns[name]`` to parameter ``name`` and to every tensor of its
+    optimizer state with the parameter's shape (Adam's moments); returns
+    the mapped parameters.  ``optimizer_state["state"]`` gets new per-
+    parameter dicts (a ``state_dict()`` shares them with the live
+    optimizer).  The optimizer's parameter ``i`` is the ``i``-th entry of
+    ``params`` (``init_state``)."""
+    per_param = optimizer_state["state"]
+    for i, (name, p) in enumerate(params.items()):
+        if name in fns and i in per_param:
+            per_param[i] = {
+                key: fns[name](v) if torch.is_tensor(v) and
+                v.shape == p.shape else v
+                for key, v in per_param[i].items()}
+    return {k: fns[k](v) if k in fns else v for k, v in params.items()}
+
+
+def save_checkpoint(path: str, state, step: Optional[int] = None, *,
+                    gather: Optional[dict] = None, write: bool = True) -> str:
     """Atomically write ``state`` (a ``parallel.train.TrainState``) to
-    ``path``; ``step`` defaults to ``state.step``."""
+    ``path``; ``step`` defaults to ``state.step``.
+
+    ``gather`` maps a parameter name to a function that makes the whole
+    tensor from this rank's part (``parallel.depth.gather_rows``); it is
+    applied to the parameter and its per-element optimizer state.  When it
+    gathers across ranks every rank calls this, and only the one with
+    ``write`` set (the rank the parts are gathered on) writes the file."""
+    params = {k: v.detach() for k, v in state.params.items()}
+    optimizer_state = state.optimizer.state_dict()
+    if gather:
+        params = _map_params(params, optimizer_state, gather)
+    if not write:
+        return path
     payload = {
-        "params": {k: v.detach().cpu() for k, v in state.params.items()},
-        "optimizer": state.optimizer.state_dict(),
+        "params": {k: v.cpu() for k, v in params.items()},
+        "optimizer": optimizer_state,
         "step": int(state.step if step is None else step),
     }
     d = os.path.dirname(os.path.abspath(path))
@@ -53,13 +85,19 @@ def save_checkpoint(path: str, state, step: Optional[int] = None) -> str:
     return path
 
 
-def load_checkpoint(path: str, like) -> Tuple[object, int]:
+def load_checkpoint(path: str, like, *,
+                    split: Optional[dict] = None) -> Tuple[object, int]:
     """Load a checkpoint written by :func:`save_checkpoint` into ``like``
     (e.g. a freshly initialised state): its parameters are overwritten in
     place, on their own device, and its optimizer takes the saved state.
-    Returns ``(state, step)``.  Raises ``ValueError`` when the stored
-    structure does not match ``like``'s."""
+    ``split`` maps a parameter name to a function that cuts this rank's
+    part from the whole saved tensor (``parallel.depth.split_rows``), for
+    the parameter and its per-element optimizer state.  Returns ``(state,
+    step)``.  Raises ``ValueError`` when the stored structure does not match
+    ``like``'s."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
+    if split:
+        ck["params"] = _map_params(ck["params"], ck["optimizer"], split)
     have = _structure(ck["params"], ck["optimizer"])
     want = _structure(like.params, like.optimizer.state_dict())
     # a fresh optimizer has no per-parameter state yet: compare only what
