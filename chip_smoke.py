@@ -15,10 +15,14 @@ chunks (the ownership range ``own``) against their plain versions, a 512^3
 volume folded from 4 depth chunks against the whole-volume frame and its
 gradients, and, in a one-rank NCCL process group, the pixel-sharded
 config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
---parallel pixels|depth`` at that size.  Each phase prints one JSON object
-per line; the last line is ``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the run exits non-zero; without a CUDA device it exits
-non-zero before any work.
+--parallel pixels|depth`` at that size.  It also holds K2 against its
+plain version on one config-4 view, launches both kernels under
+``torch.cuda.set_sync_debug_mode("error")``, and computes each kernel's
+bound from the steps its inputs make it sample.  Each phase prints one JSON
+object per line; the line before the last lists the kernels (times, bounds,
+launches per training step); the last line is ``{"ok": true, "device":
+{...}}``.  Any failed check raises, so the run exits non-zero; without a
+CUDA device it exits non-zero before any work.
 """
 
 from __future__ import annotations
@@ -64,6 +68,17 @@ C5_N, C5_CHUNKS = 512, 4    # config 5: a 512^3 grid; the depth fold's chunks
 # 1/255 everywhere, as FRAME_*; the chunk gradients against the whole-volume
 # ones within 5e-4 of the largest (tests/test_depth.py's bar).
 FOLD_GRAD_REL = 5e-4
+# Bounds: the larger of operations over the f32 peak and bytes over the
+# memory rate (H100 SXM data sheet, 700 W).  Operations of one sampled step,
+# counted from the sources (PERF.md §6): march_common.cuh:sample_step 87
+# (position 7, box and slicing tests 12, texel coordinate and weights 15,
+# corner weights 19, trilinear 16, window 2, TF lerp 16), K1's composite and
+# ET test 11; K2 adds 99 (opacity clamp 2, g.c 5, prefix and suffix 4,
+# dL/dc 3, dL/da 5, TF runs 17, dL/dt 15, window gradients 8, corner weights
+# and atomics 35, T 2, ET test 1).  No multiply-add is contracted
+# (-fmad=false), so each counts once against a peak that counts an FMA as 2.
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+OPS_PER_STEP = {"march_fwd": 98, "march_bwd": 186}
 
 
 def emit(**obj):
@@ -104,6 +119,51 @@ def max_errs(got, want):
     ok = all(bool(torch.isfinite(a).all()) and bool(torch.allclose(
         a, b, atol=BWD_ATOL, rtol=BWD_RTOL)) for a, b in zip(got, want))
     return errs, ok
+
+
+def sampled_steps(args, march):
+    """The steps K1 and K2 sample on these inputs: inside the box and the
+    slicing window, on a hit ray and, with early termination, while
+    T > eps.  The bounds count this work."""
+    from volumetric_renderer_torch.core.fused import ALPHA_EPS
+    from volumetric_renderer_torch.core.marcher import step_offsets
+    from volumetric_renderer_torch.core.sampling import trilinear_sample
+    from volumetric_renderer_torch.transfer.texture import sample_tf
+    vol, tf, pos0, dirs, hit, dmin, inv_w, smin, smax = args
+    tr = torch.ones(hit.shape, device=hit.device)
+    count = torch.zeros((), dtype=torch.int64, device=hit.device)
+    offsets = step_offsets(march["num_steps"], march["step_size"],
+                           torch.float32, hit.device)
+    for k in range(march["num_steps"]):
+        pos = pos0 + offsets[k] * dirs
+        active = (((pos >= 0.0) & (pos <= 1.0)).all(-1)
+                  & ((pos < smax) & (pos > smin)).all(-1) & hit)
+        if march["early_termination"]:
+            active = active & (tr > march["termination_eps"])
+            t = torch.where(active,
+                            (trilinear_sample(vol, pos) - dmin) * inv_w, 0.0)
+            a = sample_tf(tf, t)[..., 3].clamp(max=1.0 - ALPHA_EPS)
+            tr = tr * (1.0 - torch.where(active, a, 0.0))
+        count += active.sum()
+    return int(count)
+
+
+def bound(name, args, march):
+    """``(bound_ms, bound_by, work)`` of kernel ``name`` on these inputs:
+    each input read once and each output written once, against the
+    operations of the steps it samples."""
+    vol, tf, pos0, dirs, hit = args[:5]
+    hw = hit.numel()
+    nbytes = (4 * (vol.numel() + pos0.numel() + dirs.numel() + tf.numel())
+              + hw + 32 + 16 * hw)            # inputs, window, out
+    if name == "march_bwd":                   # g; vol_g, tf_g (f64), win_g
+        nbytes += 16 * hw + 4 * vol.numel() + 8 * tf.numel() + 16
+    steps = sampled_steps(args, march)
+    ops = OPS_PER_STEP[name] * steps
+    t_ops, t_bytes = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", dict(sampled_steps=steps, operations=ops, bytes=nbytes,
+                          ops_ms=t_ops, bytes_ms=t_bytes))
 
 
 def main() -> int:
@@ -418,6 +478,12 @@ def main() -> int:
               f"launches {launches} < ({min_fwd}, {min_bwd})")
         return res, launches
 
+    def per_step(n, views, res):
+        """Launches per training step: all but the target renders."""
+        steps = len(res["losses"])
+        return {"march_fwd": (n["march_fwd"] - views) / steps,
+                "march_bwd": n["march_bwd"] / steps}
+
     main_launches = {"march_fwd": launches, "march_bwd": 0}
     steps3, views4 = 5, 32
     res, n = optimize_run(
@@ -426,6 +492,9 @@ def main() -> int:
          str(steps3), "--device", "cuda"], 1 + steps3, steps3)
     check(res["losses"][-1] < res["losses"][0], f"config 3 loss did not "
           f"fall: {res['losses']}")
+    launches_per_step = {"reference_frame": {"march_fwd": launches,
+                                             "march_bwd": 0},
+                         "config3": per_step(n, 1, res)}
     for k in main_launches:
         main_launches[k] += n[k]
     with tempfile.TemporaryDirectory() as ck:
@@ -434,6 +503,7 @@ def main() -> int:
                "--ckpt-dir", ck, "--ckpt-every", "2", "--device", "cuda"]
         first, n = optimize_run(inv + ["--steps-opt", "4"],
                                 views4 * 5, views4 * 4)
+        launches_per_step["config4"] = per_step(n, views4, first)
         for k in main_launches:
             main_launches[k] += n[k]
         check(first["losses"][-1] < first["losses"][0],
@@ -625,12 +695,14 @@ def main() -> int:
     frame_ms = cuda_ms(lambda: render(vol, tf_ramp, cam, settings,
                                       method="kernel"), 5)
     plain_ms = cuda_ms(lambda: march_forward_plain(*args, **march), 3)
+    k1_bound_ms, k1_bound_by, k1_work = bound("march_fwd", args, march)
     rays = FRAME_H * FRAME_W
     emit(phase="timing", workload=f"{FRAME_N}^3 sphere, {FRAME_W}x{FRAME_H}, "
          f"{FRAME_STEPS} steps, ET on, ntf {NTF}", gpu=gpu, nvidia_smi=smi,
          kernel_ms=kernel_ms, kernel_ms_again=kernel_ms_again,
          kernel_whole_range_own_ms=own_ms, plain_ms=plain_ms,
-         frame_ms=frame_ms,
+         frame_ms=frame_ms, bound_ms=k1_bound_ms, bound_by=k1_bound_by,
+         work=k1_work,
          kernel_rays_per_s=rays / (kernel_ms / 1e3),
          plain_rays_per_s=rays / (plain_ms / 1e3),
          frame_rays_per_s=rays / (frame_ms / 1e3))
@@ -644,6 +716,41 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: march_forward(*args, **march), 5)
     out = march_forward(*args, **march)
     k2_ms = cuda_ms(lambda: march_backward(*args, out, g, **march), 5)
+    k2_bound_ms, k2_bound_by, k2_work = bound("march_bwd", args, march)
+    # K1 and K2 on one view of config 4 (the app's first: yaw 0, pitch 20)
+    s4 = RenderSettings(height=256, width=256, step_size=1.8 / FRAME_STEPS,
+                        early_termination=False)
+    args4, march4 = kernel_inputs(vol, tf_ramp,
+                                  OrbitCamera.from_angles(0.0, 20.0), s4)
+    g4 = cotangent((256, 256, 4), 8)
+    k1_view4_ms = cuda_ms(lambda: march_forward(*args4, **march4), 5)
+    out4 = march_forward(*args4, **march4)
+    k2_view4_ms = cuda_ms(
+        lambda: march_backward(*args4, out4, g4, **march4), 5)
+    view4_bounds = {k: bound(k, args4, march4)[:2]
+                    for k in ("march_fwd", "march_bwd")}
+    errs4, ok4 = max_errs(march_backward(*args4, out4, g4, **march4),
+                          march_backward_plain(*args4, out4, g4, **march4))
+    emit(phase="kernel_bwd_vs_plain", case="config4_view", shape=[256, 256],
+         steps=FRAME_STEPS, max_abs_err=errs4, atol=BWD_ATOL, rtol=BWD_RTOL,
+         note=BWD_NOTE)
+    check(ok4, f"config-4 view: K2 vs plain {errs4}")
+    bwd_small_err = max(bwd_small_err, *errs4.values())
+
+    # both kernels at config 3 with every input on the card: a launch that
+    # waited on the device would raise under sync-debug mode "error"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_ns = march_forward(*args, **march)
+        grads_ns = march_backward(*args, out_ns, g, **march)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ns_k1_equal = bool(torch.equal(out_ns, out))
+    emit(phase="no_host_sync", sync_debug_mode="error", k1_equal=ns_k1_equal,
+         k2_finite=all(bool(torch.isfinite(x).all()) for x in grads_ns))
+    check(ns_k1_equal, "K1 under sync-debug mode differs")
+    del out_ns, grads_ns
 
     def kernel_step():
         leaves = [vol.detach().requires_grad_(True),
@@ -694,7 +801,12 @@ def main() -> int:
     emit(phase="timing_train_step",
          workload=f"{FRAME_N}^3 sphere, {FRAME_W}x{FRAME_H}, {FRAME_STEPS} "
          f"steps, ET off, ntf {NTF}", gpu=gpu, nvidia_smi=smi,
-         k1_ms=k1_ms, k2_ms=k2_ms, kernel_fwd_bwd_step_ms=step_ms,
+         k1_ms=k1_ms, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
+         k2_bound_by=k2_bound_by, k2_work=k2_work,
+         config4_view=dict(shape=[256, 256], camera=[0.0, 20.0],
+                           k1_ms=k1_view4_ms, k2_ms=k2_view4_ms,
+                           bounds=view4_bounds),
+         kernel_fwd_bwd_step_ms=step_ms,
          rest_of_step_ms=step_ms - k1_ms - k2_ms, adam_256cubed_ms=adam_ms,
          plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
          plain_fwd_bwd_ms=plain_fwd_ms + plain_bwd_ms,
@@ -710,15 +822,20 @@ def main() -> int:
          "replaces": KERNELS["march_fwd"][1],
          "launches": main_launches["march_fwd"],
          "max_abs_err": max(err, own_fwd_err),
-         "ms": kernel_ms, "plain_ms": plain_ms},
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
+         "bound_by": k1_bound_by, "library_ms": None,
+         "launches_per_step": {k: v["march_fwd"] for k, v in
+                               launches_per_step.items()}},
         {"name": "march_bwd", "route": "cuda",
          "source": KERNELS["march_bwd"][0],
          "replaces": KERNELS["march_bwd"][1],
          "launches": main_launches["march_bwd"],
-         "max_abs_err": max(own_bwd_err, bwd_err if bwd_err is not None
-                            else bwd_small_err),
+         "max_abs_err": max(own_bwd_err, bwd_small_err, bwd_err or 0.0),
          "ms": k2_ms, "plain_ms": plain_bwd_ms,
-         "plain_steps": plain_march["num_steps"]},
+         "plain_steps": plain_march["num_steps"], "bound_ms": k2_bound_ms,
+         "bound_by": k2_bound_by, "library_ms": None,
+         "launches_per_step": {k: v["march_bwd"] for k, v in
+                               launches_per_step.items()}},
     ]}), flush=True)
     # the devices this run used: those it allocated memory on
     used = sum(torch.cuda.max_memory_allocated(i) > 0

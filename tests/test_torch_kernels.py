@@ -76,8 +76,8 @@ def case_params(name):
         c["et"] = True
     elif name == "slicing":
         c["slicing"] = ((0.1, 0.2, 0.0), (0.9, 1.0, 0.7))
-    elif name == "image_30x20":
-        c["hw"] = (30, 20)
+    elif name.startswith("image_"):
+        c["hw"] = tuple(int(v) for v in name[6:].split("x"))
     elif name == "close_wide_fov":
         c["camera"], c["fov"] = (30.0, 20.0, 0.9), 90.0
     elif name == "degenerate_window":
@@ -308,14 +308,15 @@ def cpu_kernels(tmp_path_factory):
     return libs
 
 
-def cpu_launch(libs, args, kw, out=None, g=None):
+def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
     """K1 (``out`` None) or K2 on CPU tensors, through the C interface the
     wrapper calls; returns what ``march_forward`` / ``march_backward``
-    would."""
+    would.  K2 sums its TF gradient in shared memory first with
+    ``shared_table``, and adds into 3 copies of it in any case."""
     vol, tf, pos0, dirs, hit = args[:5]
     h, w = pos0.shape[:2]
     own = march._own_args("cpu_launch", kw.get("own"), vol)
-    window = march._window("cpu_launch", *args[5:])
+    window = march._window("cpu_launch", "cpu", *args[5:])
     steps = (kw["num_steps"], kw["step_size"], int(kw["early_termination"]),
              kw["termination_eps"], 1.0 - march.ALPHA_EPS)
     head = (0, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
@@ -323,31 +324,38 @@ def cpu_launch(libs, args, kw, out=None, g=None):
     if out is None:
         res = torch.empty((h, w, 4))
         code = libs["march_fwd"].march_fwd_launch(
-            *head, res.data_ptr(), h, w, *window, *steps, None)
+            *head, res.data_ptr(), h, w, window.data_ptr(), *steps, None)
         assert code == 0
         return res
     g = g.contiguous()
     vol_g = torch.zeros_like(vol)
-    tf_g = torch.zeros(tf.shape, dtype=torch.float64)
+    tf_g = torch.zeros((3,) + tuple(tf.shape), dtype=torch.float64)
     win_g = torch.zeros(2, dtype=torch.float64)
     code = libs["march_bwd"].march_bwd_launch(
         *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(),
-        tf_g.data_ptr(), win_g.data_ptr(), h, w, *window, *steps,
-        march.ALPHA_EPS, None)
+        tf_g.data_ptr(), 3, int(shared_table), win_g.data_ptr(), h, w,
+        window.data_ptr(), *steps, march.ALPHA_EPS, None)
     assert code == 0
     win_g = win_g.float()
-    return vol_g, tf_g.float(), win_g[0], win_g[1]
+    return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
 
 
+@pytest.mark.parametrize("table", ["shared", "global"])
 @pytest.mark.parametrize("name,own", [
     ("orient_30_20", None), ("early_termination", None), ("slicing", None),
     ("nan_voxel", None), ("orient_30_20", (0, 2, 1)),
-    ("orient_200_5", (1, 4, 0)), ("orient_200_5", (2, 4, 3))])
+    ("orient_200_5", (1, 4, 0)), ("orient_200_5", (2, 4, 3)),
+    # K2's warp-wide TF flush: every lane of a warp on one texel, lanes
+    # outside the image, a wide fan of rays, 4096 texels, on chunks too
+    ("degenerate_window", None), ("image_30x20", None),
+    ("close_wide_fov", None), ("tf_past_48k_shared_memory", None),
+    ("close_wide_fov", (0, 4, 1)), ("image_30x20", (2, 2, 0))])
 def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
-                                                     own):
+                                                     own, table):
     """The CUDA sources, compiled by g++ for the CPU, against the plain
-    versions: K1 bit for bit, K2 within its bars, on the whole volume and
-    on depth chunks ``own = (axis, chunks, chunk)``."""
+    versions: K1 bit for bit, K2 within its bars with its TF gradient
+    summed in either table (shared memory, or global memory directly), on
+    the whole volume and on depth chunks ``own = (axis, chunks, chunk)``."""
     if own is None:
         args, kw = case_inputs(name, "cpu")
     else:
@@ -357,7 +365,8 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     g = cotangent(args)
     for what, a, b in zip(("vol", "tf", "dmin", "dmax"),
-                          cpu_launch(cpu_kernels, args, kw, want, g),
+                          cpu_launch(cpu_kernels, args, kw, want, g,
+                                     shared_table=table == "shared"),
                           march_backward_plain(*args, want, g, **kw)):
         assert a.shape == b.shape, what
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
@@ -437,6 +446,56 @@ def test_render_kernel_grads_match_oracle_on_cuda(cuda, n, steps, et):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,shared_table", [("orient_30_20", False),
+                                               ("image_288x288", True)])
+def test_backward_kernel_tf_tables_on_cuda(cuda, name, shared_table):
+    """K2 adds its TF gradient to global memory directly in a launch of at
+    most one wave of blocks (40x48 pixels: 9 blocks) and sums it per block
+    in shared memory first in a larger one (288x288: 324 blocks, more than
+    an H100 runs at once): both against the plain version."""
+    args, kw = case_inputs(name, cuda)
+    h, w = args[2].shape[:2]
+    lib = march.load_library("march_bwd")
+    wave = march._one_wave(lib, torch.cuda.current_device(), NTF)
+    assert (-(-h // 16) * -(-w // 16) > wave) == shared_table
+    out = march_forward(*args, **kw)
+    g = cotangent(args)
+    got = march_backward(*args, out, g, **kw)
+    want = march_backward_plain(*args, out, g, **kw)
+    for what, a, b in zip(("vol", "tf", "dmin", "dmax"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=BWD_ATOL, rtol=BWD_RTOL,
+                                   err_msg=what)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_without_host_sync(cuda):
+    """K1 and K2 take every input from the card, the density and slicing
+    windows included: under sync-debug mode "error" a launch that waited on
+    the device would raise."""
+    args, kw = case_inputs("slicing", cuda)
+    g = cotangent(args)
+    march_backward(*args, march_forward(*args, **kw), g, **kw)   # build
+    torch.cuda.synchronize()
+    launches = (march_forward.launches, march_backward.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = march_forward(*args, **kw)
+        got = march_backward(*args, out, g, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (march_forward.launches, march_backward.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    want_out = march_forward_plain(*args, **kw)
+    want = march_backward_plain(*args, want_out, g, **kw)
+    np.testing.assert_array_equal(out.cpu().numpy(), want_out.cpu().numpy())
+    for what, a, b in zip(("vol", "tf", "dmin", "dmax"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=BWD_ATOL, rtol=BWD_RTOL,
+                                   err_msg=what)
+
+
+@pytest.mark.cuda
 def test_failing_backward_launch_raises(cuda, monkeypatch):
     """A CUDA error from the K2 launch raises; nothing falls back to the
     plain version and the launch is not counted."""
@@ -470,8 +529,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         march_backward(*args, out, g.double(), **kw)
     with pytest.raises(ValueError, match="shared memory"):
-        march_backward(vol, torch.zeros((5000, 4), device=cuda), pos0, dirs,
-                       hit, *rest, out, g, **kw)
+        march_backward(vol, torch.zeros((1 << 16, 4), device=cuda), pos0,
+                       dirs, hit, *rest, out, g, **kw)
     # a non-contiguous cotangent (the grad of a slice) is made contiguous
     got = march_backward(*args, out, torch.cat([g, g], -1)[..., ::2], **kw)
     assert torch.isfinite(got[0]).all()

@@ -26,33 +26,59 @@
 // termination, the slicing window, a step another depth chunk owns); all
 // are exact, because the plain version adds exactly 0 on those steps.
 //
+// What bounds it, measured on an H100 (PERF.md §6): not the voxel
+// scatter.  At BASELINE config 3 (256^3, 1920x1080, 512 steps) K2 took
+// 2.79 ms; without its ~580 M global f32 atomics 2.62-2.77 ms, without the
+// shared-memory flush of its TF-gradient runs 1.80-2.01 ms.  On sm_90a a
+// shared-memory f64 atomicAdd (and an f32 one too) compiles to a
+// compare-and-swap loop (ATOMS.CAST.SPIN), and the flushes of one warp
+// land on a few texels: neighbouring rays cross the same densities, so up
+// to 32 lanes retried on one address.  What remains is K1's march (8
+// dependent gathers per step) plus the backward arithmetic.
+//
 // Design on the card:
 //   * 16x16-pixel blocks, one thread per ray, the TF table in shared memory
 //     (as K1).
 //   * The TF gradient and dmin_g / dmax_g are sums over every ray and step
 //     (~1e6 terms in one TF texel at 96x96 pixels and 128 steps), where f32
 //     in an arbitrary order loses ~1e-4 relative.  So they are accumulated
-//     in f64, as the plain version does: each thread sums its run of steps
-//     that share the same two TF texels in f64 registers and flushes the
-//     run into a per-block (ntf, 4) f64 accumulator in shared memory (f64
-//     shared atomicAdd) when the texels change; the block flushes once into
-//     a global (ntf, 4) f64 array, which the wrapper rounds to f32.  The
-//     runs also spare empty space, where every ray of a warp sits in texel
-//     0, a 32-way conflict on one shared address per step.  Shared memory:
-//     ntf*16 bytes of table + ntf*32 of accumulator = ntf*48 bytes.
+//     in f64, as the plain version does.  Each thread sums its run of steps
+//     that share the same two TF texels in f64 registers.  Where any lane's
+//     run ends, the whole warp flushes together: __match_any_sync groups the
+//     lanes whose runs end on the same texel, a shuffle tree sums each group
+//     into its lowest lane, and that lane alone adds the group's sum to an
+//     (ntf, 4) f64 table.  So no two lanes of a warp contend for one
+//     address.  The table is one of two, chosen per launch (kSharedTable):
+//       - many waves of blocks (BASELINE config 3, 8160 blocks): the
+//         block's table in shared memory, where the CAS loop of the f64
+//         atomicAdd succeeds at its first try unless another warp of the
+//         block adds to the same texel then; the block adds its table to
+//         global memory once at its end.  Shared memory ntf*48 bytes.
+//       - at most one wave (a config-4 view, 256 blocks): the global
+//         memory directly, with REDG.E.ADD.F64, which is native and does
+//         not wait for its result, so nothing is added to a step's chain of
+//         dependent latencies, and a launch of one wave is bound by that
+//         chain.  Shared memory ntf*16 bytes.
+//     Measured at config 3 and on a config-4 view (PERF.md §6): shared
+//     2.21-2.38 and 1.35-1.50 ms, global 2.61-2.72 and 0.76-0.89 ms (many
+//     waves of blocks load L2 with their f64 reductions).  The wrapper
+//     picks the table from the launch's size and the card's occupancy.
+//     Either adds into one of up to 64 copies of the table in global
+//     memory (block index mod copies), which the wrapper sums and rounds to
+//     f32.
+//   * For the warp-wide flush every lane of a warp runs every step of the
+//     warp's loop, a lane whose ray is done (or that has no ray) included;
+//     it then only votes.  The loop ends when no lane of the warp is live.
 //   * dmin_g and dmax_g are per-thread f64 sums, reduced per block (warp
 //     shuffles, then shared memory) into one global f64 atomicAdd each.
 //   * The voxel gradient is a zeroed (Z, Y, X) f32 grid in global memory;
 //     each active step adds to its 8 corners with f32 atomicAdd (skipped
 //     where the density gradient is exactly 0, e.g. in empty space where
-//     the TF is flat, which changes nothing).  A voxel receives few terms,
-//     so f32 suffices there.
-//   * What bounds it: the scattered f32 atomics onto the grid (64 MiB at
-//     256^3, more than the 50 MB L2), up to 8 per active step, contended
-//     where neighbouring rays share voxels; plus K1's 8 dependent gathers
-//     per step for the recompute.
-//   * Later work: warp-aggregated atomics, or accumulation per brick in
-//     shared memory with one flush per brick.
+//     the TF is flat, which changes nothing).  These are fire-and-forget
+//     reductions in L2 and cost 0.02-0.17 ms of the 2.79 (above).  An
+//     accumulator per block in shared memory would trade them for shared
+//     f32 atomicAdds, which are CAS loops on this card, contended wherever
+//     neighbouring rays share a voxel; it is not built.
 //
 // Atomics add in an order that changes from run to run, so the gradients
 // are not bitwise repeatable; they are held to the plain version with a
@@ -64,19 +90,50 @@ namespace {
 
 using march::kTile;
 constexpr int kWarps = kTile * kTile / 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Adds a finished run of one TF texel's gradient to the block accumulator.
-__device__ __forceinline__ void flush_run(double* tfg_s, int texel,
-                                         double (&acc)[4]) {
-  if (texel < 0) return;
+// Adds the ended TF-gradient runs of a warp to `table`: every lane of the
+// warp calls it at once; `texel` < 0 where the lane adds nothing.
+// The lanes that add to one texel sum their `acc` in a shuffle tree (after
+// round r each lane holds the sum over 2^r of the group's lanes from itself
+// up), and the lowest of them adds the group's sum.
+__device__ __forceinline__ void add_runs(double* table, int texel,
+                                         const double (&acc)[4]) {
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  unsigned peers = __match_any_sync(kFullWarp, texel);
+  if (texel < 0) peers = 0u;
+  const bool leader =
+      peers != 0u && __ffs(static_cast<int>(peers)) - 1 == lane;
+  // position among the group's lanes, lowest first
+  unsigned rank =
+      static_cast<unsigned>(__popc(peers & ((1u << lane) - 1u)));
+  peers &= ~((2u << lane) - 1u);   // the group's lanes above this one
+  double sum[4] = {acc[0], acc[1], acc[2], acc[3]};
+  while (__any_sync(kFullWarp, peers != 0u)) {
+    const int next = __ffs(static_cast<int>(peers));   // 0: none left
+    const int src = next > 0 ? next - 1 : lane;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (acc[c] != 0.0) atomicAdd(tfg_s + texel * 4 + c, acc[c]);
-    acc[c] = 0.0;
+    for (int c = 0; c < 4; ++c) {
+      const double t = __shfl_sync(kFullWarp, sum[c], src);
+      if (next > 0) sum[c] += t;
+    }
+    // lanes at odd positions have passed their sum on: drop them
+    peers &= ~__ballot_sync(kFullWarp, rank & 1u);
+    rank >>= 1;
+  }
+  if (leader) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (sum[c] != 0.0) atomicAdd(table + texel * 4 + c, sum[c]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kTile * kTile)
+// With the shared table, 3 blocks per SM (80 registers, a few spilled):
+// its launches run in waves, where more warps hide more of the gathers'
+// latency (2.23-2.33 against 2.51-2.59 ms at config 3 with 92 registers).
+template <bool kSharedTable>
+__global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     march_bwd_kernel(const float* __restrict__ pos0,
                      const float* __restrict__ dirs,
                      const unsigned char* __restrict__ hit,
@@ -85,128 +142,146 @@ __global__ void __launch_bounds__(kTile * kTile)
                      const float* __restrict__ out,
                      const float* __restrict__ grad,
                      float* __restrict__ vol_g, double* __restrict__ tf_g,
-                     double* __restrict__ win_g, int height, int width,
-                     march::Window win, int num_steps, float dt,
-                     int early_termination, float eps, float amax,
-                     float alpha_eps) {
-  // Dynamic shared memory: the (ntf, 4) f64 gradient accumulator first (8-
-  // byte aligned), then the (ntf, 4) f32 table.
+                     int tf_copies, double* __restrict__ win_g, int height,
+                     int width, const float* __restrict__ window,
+                     int num_steps, float dt, int early_termination,
+                     float eps, float amax, float alpha_eps) {
+  // Dynamic shared memory: with kSharedTable the (ntf, 4) f64 gradient
+  // table first (8-byte aligned), then the (ntf, 4) f32 TF table.
   extern __shared__ double smem_d[];
-  double* tfg_s = smem_d;
-  float* tf_s = reinterpret_cast<float*>(smem_d + ntf * 4);
+  float* tf_s =
+      reinterpret_cast<float*>(kSharedTable ? smem_d + ntf * 4 : smem_d);
+  double* tfg_copy = tf_g + static_cast<int64_t>(
+      (blockIdx.y * gridDim.x + blockIdx.x) % tf_copies) * ntf * 4;
+  double* tfg = kSharedTable ? smem_d : tfg_copy;
   __shared__ double red_s[2][kWarps];
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
     tf_s[i] = tf[i];
-    tfg_s[i] = 0.0;
+    if (kSharedTable) tfg[i] = 0.0;
   }
   __syncthreads();
+  const march::Window win = march::load_window(window);
 
   const int px = blockIdx.x * kTile + threadIdx.x;
   const int py = blockIdx.y * kTile + threadIdx.y;
+  const int64_t ray = static_cast<int64_t>(py) * width + px;
+  // No early return: every lane takes part in the warp's TF flushes and
+  // every thread in the block reductions below.
+  bool live = px < width && py < height && hit[ray];
+  march::Ray rr{};
+  float4 o{}, g{};
+  if (live) {
+    rr = march::load_ray(pos0, dirs, ray);
+    o = reinterpret_cast<const float4*>(out)[ray];
+    g = reinterpret_cast<const float4*>(grad)[ray];
+  }
+  const float big_g = g.x * o.x + g.y * o.y + g.z * o.z;
+  const float ga_tfin = g.w * (1.0f - o.w);
+  const float fntf = static_cast<float>(ntf);
+  float tr = 1.0f, p = 0.0f;
   double dmin_acc = 0.0, dmax_acc = 0.0;
-  // No early return: every thread reaches the block reductions below.
-  if (px < width && py < height) {
-    const int64_t ray = static_cast<int64_t>(py) * width + px;
-    if (hit[ray]) {
-      const march::Ray rr = march::load_ray(pos0, dirs, ray);
-      const float4 o = reinterpret_cast<const float4*>(out)[ray];
-      const float4 g = reinterpret_cast<const float4*>(grad)[ray];
-      const float big_g = g.x * o.x + g.y * o.y + g.z * o.z;
-      const float ga_tfin = g.w * (1.0f - o.w);
-      const float fntf = static_cast<float>(ntf);
-      float tr = 1.0f, p = 0.0f;
-      // the current run: its two texels and their f64 gradient sums
-      int run_lo = -1, run_hi = -1;
-      double acc_lo[4] = {0.0, 0.0, 0.0, 0.0};
-      double acc_hi[4] = {0.0, 0.0, 0.0, 0.0};
-      march::Sample s;
-      for (int k = 0; k < num_steps; ++k) {
-        if (early_termination && !(tr > eps)) break;
+  // the current run: its two texels and their f64 gradient sums
+  int run_lo = -1, run_hi = -1;
+  double acc_lo[4] = {0.0, 0.0, 0.0, 0.0};
+  double acc_hi[4] = {0.0, 0.0, 0.0, 0.0};
+  march::Sample s;
+  for (int k = 0; __any_sync(kFullWarp, live); ++k) {
+    bool sampled = false;
+    if (live) {
+      if (k >= num_steps || (early_termination && !(tr > eps))) {
+        live = false;
+      } else {
         const int kind =
             march::sample_step(vol, grid, tf_s, ntf, rr, win, k, dt, s);
-        if (kind == march::kLeftBox) break;
-        if (kind != march::kSampled) continue;
-
-        const bool clamped = s.a > amax;
-        const float a = march::clamp_alpha(s.a, amax);
-        const float gc = g.x * s.r + g.y * s.g + g.z * s.b;
-        const float ta = tr * a;
-        p = p + ta * gc;
-        const float suffix = big_g - p;
-        const float one_minus_a = 1.0f - a;
-        // max(1 - a, ALPHA_EPS), NaN propagating as torch.clamp does
-        const float denom = (one_minus_a < alpha_eps) ? alpha_eps
-                                                      : one_minus_a;
-        const float dr = ta * g.x, dg = ta * g.y, db = ta * g.z;
-        const float da = clamped ? 0.0f : tr * gc + (ga_tfin - suffix) / denom;
-
-        // TF-table gradient: the transpose of the 2-bin lerp.
-        if (s.lo != run_lo || s.hi != run_hi) {
-          flush_run(tfg_s, run_lo, acc_lo);
-          flush_run(tfg_s, run_hi, acc_hi);
-          run_lo = s.lo;
-          run_hi = s.hi;
-        }
-        const float w1 = s.w, w0 = 1.0f - s.w;
-        acc_lo[0] += static_cast<double>(dr * w0);
-        acc_lo[1] += static_cast<double>(dg * w0);
-        acc_lo[2] += static_cast<double>(db * w0);
-        acc_lo[3] += static_cast<double>(da * w0);
-        acc_hi[0] += static_cast<double>(dr * w1);
-        acc_hi[1] += static_cast<double>(dg * w1);
-        acc_hi[2] += static_cast<double>(db * w1);
-        acc_hi[3] += static_cast<double>(da * w1);
-
-        // Density gradient through the lerp slope (tf[hi] - tf[lo]) * ntf.
-        const float* tlo = tf_s + s.lo * 4;
-        const float* thi = tf_s + s.hi * 4;
-        const float dl_dt = dr * ((thi[0] - tlo[0]) * fntf) +
-                            dg * ((thi[1] - tlo[1]) * fntf) +
-                            db * ((thi[2] - tlo[2]) * fntf) +
-                            da * ((thi[3] - tlo[3]) * fntf);
-        dmin_acc += static_cast<double>(dl_dt * (s.t - 1.0f) * win.inv_w);
-        dmax_acc += static_cast<double>(dl_dt * (-s.t) * win.inv_w);
-        const float dl_dd = dl_dt * win.inv_w;
-
-        // Voxel gradient: the transpose of the 8-corner gather.
-        if (dl_dd != 0.0f) {
+        live = kind != march::kLeftBox;
+        sampled = kind == march::kSampled;
+      }
+    }
+    // A run ends where a sampled step has other texels, or with its ray.
+    const bool ends = run_lo >= 0 &&
+                      (sampled ? (s.lo != run_lo || s.hi != run_hi) : !live);
+    if (__any_sync(kFullWarp, ends)) {
+      add_runs(tfg, ends ? run_lo : -1, acc_lo);
+      add_runs(tfg, ends ? run_hi : -1, acc_hi);
+      if (ends) {
+        run_lo = run_hi = -1;
 #pragma unroll
-          for (int cz = 0; cz < 2; ++cz) {
+        for (int c = 0; c < 4; ++c) acc_lo[c] = acc_hi[c] = 0.0;
+      }
+    }
+    if (!sampled) continue;
+
+    const bool clamped = s.a > amax;
+    const float a = march::clamp_alpha(s.a, amax);
+    const float gc = g.x * s.r + g.y * s.g + g.z * s.b;
+    const float ta = tr * a;
+    p = p + ta * gc;
+    const float suffix = big_g - p;
+    const float one_minus_a = 1.0f - a;
+    // max(1 - a, ALPHA_EPS), NaN propagating as torch.clamp does
+    const float denom = (one_minus_a < alpha_eps) ? alpha_eps : one_minus_a;
+    const float dr = ta * g.x, dg = ta * g.y, db = ta * g.z;
+    const float da = clamped ? 0.0f : tr * gc + (ga_tfin - suffix) / denom;
+
+    // TF-table gradient: the transpose of the 2-bin lerp.
+    run_lo = s.lo;
+    run_hi = s.hi;
+    const float w1 = s.w, w0 = 1.0f - s.w;
+    acc_lo[0] += static_cast<double>(dr * w0);
+    acc_lo[1] += static_cast<double>(dg * w0);
+    acc_lo[2] += static_cast<double>(db * w0);
+    acc_lo[3] += static_cast<double>(da * w0);
+    acc_hi[0] += static_cast<double>(dr * w1);
+    acc_hi[1] += static_cast<double>(dg * w1);
+    acc_hi[2] += static_cast<double>(db * w1);
+    acc_hi[3] += static_cast<double>(da * w1);
+
+    // Density gradient through the lerp slope (tf[hi] - tf[lo]) * ntf.
+    const float* tlo = tf_s + s.lo * 4;
+    const float* thi = tf_s + s.hi * 4;
+    const float dl_dt = dr * ((thi[0] - tlo[0]) * fntf) +
+                        dg * ((thi[1] - tlo[1]) * fntf) +
+                        db * ((thi[2] - tlo[2]) * fntf) +
+                        da * ((thi[3] - tlo[3]) * fntf);
+    dmin_acc += static_cast<double>(dl_dt * (s.t - 1.0f) * win.inv_w);
+    dmax_acc += static_cast<double>(dl_dt * (-s.t) * win.inv_w);
+    const float dl_dd = dl_dt * win.inv_w;
+
+    // Voxel gradient: the transpose of the 8-corner gather.
+    if (dl_dd != 0.0f) {
 #pragma unroll
-            for (int cy = 0; cy < 2; ++cy) {
+      for (int cz = 0; cz < 2; ++cz) {
 #pragma unroll
-              for (int cx = 0; cx < 2; ++cx) {
-                const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
-                if (march::in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)) {
-                  atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx,
-                                                        grid.ny),
-                            dl_dd * march::corner_weight(s, cx, cy, cz));
-                }
-              }
+        for (int cy = 0; cy < 2; ++cy) {
+#pragma unroll
+          for (int cx = 0; cx < 2; ++cx) {
+            const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
+            if (march::in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)) {
+              atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx,
+                                                    grid.ny),
+                        dl_dd * march::corner_weight(s, cx, cy, cz));
             }
           }
         }
-        tr = tr * (1.0f - a);
       }
-      flush_run(tfg_s, run_lo, acc_lo);
-      flush_run(tfg_s, run_hi, acc_hi);
     }
+    tr = tr * (1.0f - a);
   }
 
   // dmin_g / dmax_g: warp shuffles, then one partial per warp.
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) {
-    dmin_acc += __shfl_down_sync(0xffffffffu, dmin_acc, offset);
-    dmax_acc += __shfl_down_sync(0xffffffffu, dmax_acc, offset);
+    dmin_acc += __shfl_down_sync(kFullWarp, dmin_acc, offset);
+    dmax_acc += __shfl_down_sync(kFullWarp, dmax_acc, offset);
   }
   const int lane = tid & 31, warp = tid >> 5;
   if (lane == 0) {
     red_s[0][warp] = dmin_acc;
     red_s[1][warp] = dmax_acc;
   }
-  __syncthreads();   // also orders every tfg_s update before the flush
+  __syncthreads();   // also orders the shared table's adds before its flush
   if (tid == 0) {
     double a0 = 0.0, a1 = 0.0;
     for (int i = 0; i < kWarps; ++i) {
@@ -216,10 +291,17 @@ __global__ void __launch_bounds__(kTile * kTile)
     atomicAdd(win_g + 0, a0);
     atomicAdd(win_g + 1, a1);
   }
-  for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
-    const double v = tfg_s[i];
-    if (v != 0.0) atomicAdd(tf_g + i, v);
+  if (kSharedTable) {
+    for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
+      const double v = tfg[i];
+      if (v != 0.0) atomicAdd(tfg_copy + i, v);
+    }
   }
+}
+
+size_t smem_bytes(bool shared_table, int ntf) {
+  return static_cast<size_t>(ntf) * 4 *
+         ((shared_table ? sizeof(double) : 0) + sizeof(float));
 }
 
 }  // namespace
@@ -236,38 +318,57 @@ const char* march_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The blocks of the kernel with the table in global memory that one SM of
+// `device` holds at once with `ntf` texels, and the device's SM count: a
+// launch of more blocks than their product runs in several waves.
+int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(false, ntf);
+  err = march::allow_dynamic_smem(march_bwd_kernel<false>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, march_bwd_kernel<false>, kTile * kTile, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device));
+}
+
 // Launches the re-march on `stream` and returns cudaGetLastError().  All
-// pointers are device pointers.  pos0, dirs, hit, vol, tf are K1's inputs;
-// out is K1's (height, width, 4) output and grad its cotangent, same shape.
-// The caller zeroes the outputs: vol_g (nz, ny, nx) f32, tf_g (ntf, 4) f64
+// pointers are device pointers.  pos0, dirs, hit, vol, tf and window are
+// K1's inputs (march_fwd_launch); out is K1's (height, width, 4) output and
+// grad its cotangent, same shape.  The caller zeroes the outputs: vol_g
+// (nz, ny, nx) f32, tf_g (tf_copies, ntf, 4) f64, whose copies it sums,
 // and win_g (2,) f64 = (dmin_g, dmax_g).  All contiguous, float4 arrays
-// 16-byte aligned.  own_* as for march_fwd_launch: on a depth chunk, vol_g
-// has the chunk's shape, halo row included.
+// 16-byte aligned.  shared_table != 0 sums each block's TF gradient in
+// shared memory first (ntf*48 bytes of it, else ntf*16).  own_* as for
+// march_fwd_launch: on a depth chunk, vol_g has the chunk's shape, halo row
+// included.
 int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
                      int ny, int nx, int own_axis, int own_start,
                      int own_body, int own_total, const float* tf, int ntf,
                      const float* out, const float* grad, float* vol_g,
-                     double* tf_g, double* win_g, int height, int width,
-                     float dmin, float inv_w, float sx0, float sy0, float sz0,
-                     float sx1, float sy1, float sz1, int num_steps, float dt,
+                     double* tf_g, int tf_copies, int shared_table,
+                     double* win_g, int height, int width,
+                     const float* window, int num_steps, float dt,
                      int early_termination, float eps, float amax,
                      float alpha_eps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem =
-      static_cast<size_t>(ntf) * 4 * (sizeof(double) + sizeof(float));
-  err = march::allow_dynamic_smem(march_bwd_kernel, smem);
+  const auto kernel =
+      shared_table ? march_bwd_kernel<true> : march_bwd_kernel<false>;
+  const size_t smem = smem_bytes(shared_table != 0, ntf);
+  err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const march::Window win{dmin, inv_w, sx0, sy0, sz0, sx1, sy1, sz1};
   const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
                                              own_body, own_total);
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
-  march_bwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       pos0, dirs, hit, vol, vgrid, tf, ntf, out, grad, vol_g, tf_g,
-      win_g, height, width, win, num_steps, dt, early_termination, eps, amax,
-      alpha_eps);
+      tf_copies, win_g, height, width, window, num_steps, dt,
+      early_termination, eps, amax, alpha_eps);
   return static_cast<int>(cudaGetLastError());
 }
 

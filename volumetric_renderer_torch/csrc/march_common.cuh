@@ -78,6 +78,11 @@ struct Window {
   float sx1, sy1, sz1;
 };
 
+// The window from the 8 floats a launch passes in device memory.
+__device__ __forceinline__ Window load_window(const float* __restrict__ w) {
+  return Window{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7]};
+}
+
 struct Sample {
   int x0, y0, z0;     // lower trilinear corner in the array (may lie
                       // outside it)

@@ -53,14 +53,16 @@ __global__ void __launch_bounds__(kTile * kTile)
                      const float* __restrict__ vol, march::Grid grid,
                      const float* __restrict__ tf, int ntf,
                      float* __restrict__ out, int height, int width,
-                     march::Window win, int num_steps, float dt,
-                     int early_termination, float eps, float amax) {
+                     const float* __restrict__ window, int num_steps,
+                     float dt, int early_termination, float eps,
+                     float amax) {
   extern __shared__ float tf_s[];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
     tf_s[i] = tf[i];
   }
   __syncthreads();
+  const march::Window win = march::load_window(window);
 
   const int px = blockIdx.x * kTile + threadIdx.x;
   const int py = blockIdx.y * kTile + threadIdx.y;
@@ -108,29 +110,28 @@ const char* march_fwd_error_string(int code) {
 // pointers are device pointers; pos0 and dirs are (height*width, 3), hit is
 // (height*width,) of 0/1 bytes, vol is (nz, ny, nx), tf is (ntf, 4) and out
 // is (height, width, 4), all contiguous and 16-byte aligned where float4.
-// own_axis < 0 marches the whole volume; else vol is the depth chunk that
+// window holds 8 floats, (dmin, inv_w, smin xyz, smax xyz): the kernel reads
+// them on the card, so a launch needs no value on the host.  own_axis < 0
+// marches the whole volume; else vol is the depth chunk that
 // march_common.cuh:make_grid describes (own_start, own_body, own_total).
 int march_fwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
                      int ny, int nx, int own_axis, int own_start,
                      int own_body, int own_total, const float* tf, int ntf,
-                     float* out, int height, int width, float dmin,
-                     float inv_w, float sx0, float sy0, float sz0, float sx1,
-                     float sy1, float sz1, int num_steps, float dt,
-                     int early_termination, float eps, float amax,
-                     void* stream) {
+                     float* out, int height, int width, const float* window,
+                     int num_steps, float dt, int early_termination,
+                     float eps, float amax, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(ntf) * 4 * sizeof(float);
   err = march::allow_dynamic_smem(march_fwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const march::Window win{dmin, inv_w, sx0, sy0, sz0, sx1, sy1, sz1};
   const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
                                              own_body, own_total);
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
   march_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos0, dirs, hit, vol, vgrid, tf, ntf, out, height, width, win,
+      pos0, dirs, hit, vol, vgrid, tf, ntf, out, height, width, window,
       num_steps, dt, early_termination, eps, amax);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,10 @@ march_forward_plain = march_prepared
 march_backward_plain = march_backward_prepared
 
 _libs: dict = {}
+#: Copies of K2's (N, 4) f64 TF-gradient table in global memory, one per
+#: block index mod copies, which the wrapper sums: fewer blocks reduce into
+#: one address at once.
+TF_GRAD_COPIES = 64
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -45,14 +49,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         launch = [i, p, p, p, p, i, i, i,       # device .. nx
                   i, i, i, i,                   # own: axis, start, body, total
                   p, i, p, i, i,                # tf .. width
-                  f, f, f, f, f, f, f, f,       # dmin, inv_w, smin, smax
+                  p,                            # window
                   i, f, i, f, f, p]             # steps .. amax, stream
     else:
         launch = [i, p, p, p, p, i, i, i,        # device .. nx
                   i, i, i, i,                    # own: axis, start, body, total
                   p, i,                          # tf, ntf
-                  p, p, p, p, p, i, i,           # out .. width
-                  f, f, f, f, f, f, f, f,        # dmin, inv_w, smin, smax
+                  p, p, p, p, i, i, p, i, i,     # out .. width
+                  p,                             # window
                   i, f, i, f, f, f, p]           # steps .. alpha_eps, stream
     getattr(lib, f"{name}_launch").restype = i
     getattr(lib, f"{name}_launch").argtypes = launch
@@ -61,6 +65,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         i, ctypes.POINTER(ctypes.c_int)]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     getattr(lib, f"{name}_error_string").argtypes = [i]
+    if name == "march_bwd":
+        lib.march_bwd_occupancy.restype = i
+        lib.march_bwd_occupancy.argtypes = [
+            i, i, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -94,7 +102,7 @@ def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
                          name: str, device) -> tuple:
     """The checks every launch makes: types, contiguity, shapes, int and
     launch-grid range and shared memory.  Returns ``(lib, device index,
-    height, width)``."""
+    height, width, the device's shared-memory limit per block)``."""
     for key, t in tensors.items():
         want = torch.bool if key == "hit" else torch.float32
         if t.dtype != want:
@@ -139,21 +147,35 @@ def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
     if need > limit.value:
         raise ValueError(f"{fn}: a {tf.shape[0]}-texel TF needs {need} bytes "
                          f"of shared memory; the device allows {limit.value}")
-    return lib, dev_index, height, width
+    return lib, dev_index, height, width, limit.value
 
 
-def _floats(fn: str, x, n: int) -> list:
-    vals = torch.as_tensor(x, dtype=torch.float32).detach().reshape(-1)
-    vals = vals.tolist()
-    if len(vals) != n:
-        raise ValueError(f"{fn}: expected {n} values, got {len(vals)}")
-    return vals
+def _window(fn: str, device, dmin, inv_window, smin, smax) -> torch.Tensor:
+    """``[dmin, inv_w, *smin, *smax]`` as one contiguous ``(8,)`` float32
+    tensor on ``device``, which the kernel reads there: values already on
+    the card never pass through the host (no sync)."""
+    parts = []
+    for key, x, n in (("dmin", dmin, 1), ("inv_window", inv_window, 1),
+                      ("smin", smin, 3), ("smax", smax, 3)):
+        x = torch.as_tensor(x, dtype=torch.float32).detach().reshape(-1)
+        if x.numel() != n:
+            raise ValueError(f"{fn}: {key} must hold {n} value(s), got "
+                             f"{x.numel()}")
+        parts.append(x.to(device, non_blocking=True))
+    return torch.cat(parts)
 
 
-def _window(fn: str, dmin, inv_window, smin, smax) -> list:
-    """``[dmin, inv_w, *smin, *smax]`` as host floats."""
-    return (_floats(fn, dmin, 1) + _floats(fn, inv_window, 1)
-            + _floats(fn, smin, 3) + _floats(fn, smax, 3))
+def _one_wave(lib, dev_index: int, ntf: int) -> int:
+    """The blocks of K2 (its TF gradient in global memory) that the device
+    runs at once.  A launch of more runs in waves and is bound by
+    throughput, so K2 then sums each block's TF gradient in shared memory
+    first; a launch of at most one wave is bound by each thread's chain of
+    dependent latencies, and K2 then adds to global memory directly."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    _check_cuda(lib.march_bwd_occupancy(dev_index, ntf, ctypes.byref(per_sm),
+                                        ctypes.byref(sms)),
+                lib, "march_bwd", "reading the occupancy")
+    return per_sm.value * sms.value
 
 
 def _own_args(fn: str, own, vol) -> tuple:
@@ -202,10 +224,10 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                     "carries no graph; differentiate through "
                     "make_kernel_marcher or render(method='kernel'), whose "
                     "backward is the K2 kernel (march_backward)")
-    lib, dev_index, height, width = _check_kernel_inputs(
+    lib, dev_index, height, width, _ = _check_kernel_inputs(
         fn, tensors, 16, "march_fwd", device)
     own = _own_args(fn, own, vol)
-    window = _window(fn, dmin, inv_window, smin, smax)
+    window = _window(fn, device, dmin, inv_window, smin, smax)
 
     out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -213,7 +235,7 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     code = lib.march_fwd_launch(
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
         vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
-        out.data_ptr(), height, width, *window,
+        out.data_ptr(), height, width, window.data_ptr(),
         int(num_steps), float(step_size), int(bool(early_termination)),
         float(termination_eps), 1.0 - ALPHA_EPS, stream)
     _check_cuda(code, lib, "march_fwd", "launch")
@@ -247,15 +269,21 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             early_termination=early_termination,
             termination_eps=termination_eps, own=own)
 
-    lib, dev_index, height, width = _check_kernel_inputs(
-        fn, tensors, 48, "march_bwd", device)
+    lib, dev_index, height, width, smem_limit = _check_kernel_inputs(
+        fn, tensors, 16, "march_bwd", device)
     own = _own_args(fn, own, vol)
-    window = _window(fn, dmin, inv_window, smin, smax)
+    window = _window(fn, device, dmin, inv_window, smin, smax)
+    blocks = -(-height // 16) * -(-width // 16)
+    # the shared table takes ntf*48 bytes of shared memory, else ntf*16
+    shared_table = (tf.shape[0] * 48 <= smem_limit
+                    and blocks > _one_wave(lib, dev_index, tf.shape[0]))
+    copies = max(1, min(TF_GRAD_COPIES, blocks))
 
     # the TF and window gradients are accumulated in f64, as in the plain
     # version, and rounded to f32 here
     vol_g = torch.zeros_like(vol)
-    tf_g = torch.zeros(tf.shape, dtype=torch.float64, device=device)
+    tf_g = torch.zeros((copies,) + tuple(tf.shape), dtype=torch.float64,
+                       device=device)
     win_g = torch.zeros(2, dtype=torch.float64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     nz, ny, nx = vol.shape
@@ -263,13 +291,14 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
         vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
         out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
-        win_g.data_ptr(), height, width, *window,
+        copies, int(shared_table), win_g.data_ptr(), height, width,
+        window.data_ptr(),
         int(num_steps), float(step_size), int(bool(early_termination)),
         float(termination_eps), 1.0 - ALPHA_EPS, ALPHA_EPS, stream)
     _check_cuda(code, lib, "march_bwd", "launch")
     march_backward.launches += 1
     win_g = win_g.float()
-    return vol_g, tf_g.float(), win_g[0], win_g[1]
+    return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
 
 
 #: Kernel launches since the count was last reset; a run sets them to 0 and
