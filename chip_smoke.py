@@ -5,8 +5,9 @@
 
 Builds the forward and backward ray-march kernels (``volumetric_renderer_
 torch/csrc/march_fwd.cu``, ``march_bwd.cu``) with nvcc, holds each against
-its plain PyTorch version on the card, holds render gradients through both
-against plain autograd, renders a 256^3 NRRD volume at 1920x1080 / 512 steps
+its plain PyTorch version on the card (K1 bit for bit, on border and
+depth-chunk cases too, with rays whose chunk step interval is empty),
+holds render gradients through both against plain autograd, renders a 256^3 NRRD volume at 1920x1080 / 512 steps
 through the port's ``render_cli``, trains through ``apps.optimize`` at the
 sizes of BASELINE configs 3 (TF fit, 1920x1080) and 4 (grid inversion, 32
 views, with checkpoint and resume), and times the kernels against the plain
@@ -174,6 +175,7 @@ def main() -> int:
 
     from volumetric_renderer_torch import models
     from volumetric_renderer_torch.apps import optimize, render_cli
+    from volumetric_renderer_torch.apps.time_kernels import device_ms
     from volumetric_renderer_torch.core.marcher import (
         frame_inputs, prepare_rays,
     )
@@ -262,6 +264,12 @@ def main() -> int:
              vol=torch.full((SMALL_N,) * 3, 0.5, device=dev)),
         dict(name="nan_voxel_outside_slicing", vol=nan_vol, et=True,
              window=(0.0, 1.0), slicing=((0.2,) * 3, (0.8,) * 3)),
+        # K1's border: rays along the faces, at a corner, a 2^3 grid
+        dict(name="graze_faces", yaw=0.0, pitch=0.0),
+        dict(name="graze_corner", yaw=45.0, pitch=35.26),
+        dict(name="grid_2", vol=torch.as_tensor(
+            rng.uniform(0.0, 1.0, (2, 2, 2)).astype(np.float32),
+            device=dev)),
     ]
     for c in cases:
         h, w = c.get("hw", SMALL_HW)
@@ -280,11 +288,13 @@ def main() -> int:
         check(got.shape == (h, w, 4), f"{c['name']}: shape {got.shape}")
         check(bool(torch.isfinite(got).all()), f"{c['name']}: non-finite")
         err = float((got - ref).abs().max())
+        equal = bool(torch.equal(got, ref))
         emit(phase="kernel_vs_plain", case=c["name"], shape=[h, w],
              steps=settings.num_steps, hit_rays=int(args[4].sum()),
              alpha_max=float(got[..., 3].max()), max_abs_err=err,
-             atol=SMALL_ATOL)
-        check(err <= SMALL_ATOL, f"{c['name']}: max abs err {err}")
+             bitwise_equal=equal)
+        check(equal, f"{c['name']}: K1 differs from plain, max abs err "
+              f"{err}")
         if c["name"] == "early_termination":
             # the same case through the plain version on the host
             host = march_forward_plain(*(a.cpu() for a in args), **march)
@@ -357,7 +367,9 @@ def main() -> int:
     settings = RenderSettings(height=SMALL_HW[0], width=SMALL_HW[1],
                               step_size=1.8 / SMALL_STEPS,
                               early_termination=False)
-    for yaw, pitch in ((30.0, 20.0), (210.0, -20.0)):   # one view each way
+    # one view each way, and one along y: its rays cross few x-chunks, so
+    # many walk no step of the others (an empty step interval)
+    for yaw, pitch in ((30.0, 20.0), (210.0, -20.0), (0.0, 0.0)):
         args, march = kernel_inputs(sphere, tf_ramp,
                                     OrbitCamera.from_angles(yaw, pitch),
                                     settings)
@@ -371,11 +383,13 @@ def main() -> int:
             for n in OWN_CHUNKS:
                 body = SMALL_N // n
                 parts, k1_err, k2_errs, k2_ok = [], 0.0, {}, True
+                k1_equal = True
                 for c in range(n):
                     cargs = (chunk_of(sphere, c, body, axis),) + args[1:]
                     own = (axis, c * body, body, SMALL_N)
                     got = march_forward(*cargs, **march, own=own)
                     ref = march_forward_plain(*cargs, **march, own=own)
+                    k1_equal = k1_equal and bool(torch.equal(got, ref))
                     g = cotangent(SMALL_HW + (4,), 300 + c)
                     errs, ok = max_errs(
                         march_backward(*cargs, got, g, **march, own=own),
@@ -394,11 +408,11 @@ def main() -> int:
                 emit(phase="own_kernel_vs_plain", grid=SMALL_N,
                      view=[yaw, pitch], axis=axis, chunks=n,
                      shape=list(SMALL_HW), steps=settings.num_steps,
-                     k1_max_abs_err=k1_err, k1_atol=SMALL_ATOL,
+                     k1_max_abs_err=k1_err, k1_bitwise_equal=k1_equal,
                      k2_max_abs_err=k2_errs, k2_atol=BWD_ATOL,
                      k2_rtol=BWD_RTOL, fold_vs_whole_max_abs_err=fold_err,
                      whole_range_bitwise=True)
-                check(k1_err <= SMALL_ATOL, f"own K1 vs plain {k1_err}")
+                check(k1_equal, f"own K1 differs from plain: {k1_err}")
                 check(k2_ok, f"own K2 vs plain {k2_errs}")
                 check(fold_err <= 1e-4, f"folded chunks vs whole {fold_err}")
 
@@ -571,21 +585,29 @@ def main() -> int:
           f"chunk gradients vs whole: {grad_err} (max {grad_max})")
     del whole5, folded5, grads_w, grads_c
 
-    # timing: K1 on the whole 512^3 grid and on each of its 4 chunks
+    # timing: K1 on the whole 512^3 grid, and on its 4 chunks as the fold
+    # marches them: each call cuts the chunks anew, and K1 copies each into
+    # its texture
     k1_512_ms = cuda_ms(lambda: march_forward(*args5, **march5), 5)
-    chunk_ms = []
-    for c in range(C5_CHUNKS):
-        cargs = (chunk_of(vol5, c, body5, 0),) + args5[1:]
-        own = (0, c * body5, body5, C5_N)
-        chunk_ms.append(cuda_ms(
-            lambda: march_forward(*cargs, **march5, own=own), 5))
-        del cargs
+    k1_512_device_ms = device_ms(lambda: march_forward(*args5, **march5), 5,
+                                 "march_fwd_kernel")[0]
+
+    def k1_fold():
+        for c in range(C5_CHUNKS):
+            march_forward(chunk_of(vol5, c, body5, 0), *args5[1:], **march5,
+                          own=(0, c * body5, body5, C5_N))
+
+    fold_ms = cuda_ms(k1_fold, 5)
+    fold_device_ms = device_ms(k1_fold, 5, "march_fwd_kernel")[2]
+    fold_copy_ms = device_ms(k1_fold, 5, "Memcpy")[2]
     emit(phase="timing_depth_chunks",
          workload=f"{C5_N}^3 sphere, {FRAME_W}x{FRAME_H}, {FRAME_STEPS} "
          f"steps, ET off, ntf {NTF}, {C5_CHUNKS} chunks along z", gpu=gpu,
-         nvidia_smi=smi, k1_whole_ms=k1_512_ms, k1_chunk_ms=chunk_ms,
-         k1_chunks_sum_ms=sum(chunk_ms),
-         chunks_over_whole=sum(chunk_ms) / k1_512_ms)
+         nvidia_smi=smi, k1_whole_ms=k1_512_ms,
+         k1_whole_device_ms=k1_512_device_ms, k1_fold_ms=fold_ms,
+         k1_fold_kernels_device_ms=fold_device_ms,
+         k1_fold_copies_device_ms=fold_copy_ms,
+         fold_over_whole=fold_ms / k1_512_ms)
 
     # -- 3d. one-rank NCCL group: the sharded frame and optimize at config 5
     with socket.socket() as sock:
@@ -685,6 +707,8 @@ def main() -> int:
     cam = OrbitCamera.from_angles(30.0, 20.0)
     args, march = kernel_inputs(vol, tf_ramp, cam, settings)
     kernel_ms = cuda_ms(lambda: march_forward(*args, **march), 5)
+    kernel_device_ms = device_ms(lambda: march_forward(*args, **march), 5,
+                                 "march_fwd_kernel")[0]
     # K1 with the whole-volume ownership range (a zero halo row appended)
     whole_chunk = (chunk_of(vol, 0, FRAME_N, 0),) + args[1:]
     whole_own = (0, 0, FRAME_N, FRAME_N)
@@ -699,7 +723,8 @@ def main() -> int:
     rays = FRAME_H * FRAME_W
     emit(phase="timing", workload=f"{FRAME_N}^3 sphere, {FRAME_W}x{FRAME_H}, "
          f"{FRAME_STEPS} steps, ET on, ntf {NTF}", gpu=gpu, nvidia_smi=smi,
-         kernel_ms=kernel_ms, kernel_ms_again=kernel_ms_again,
+         kernel_ms=kernel_ms, kernel_device_ms=kernel_device_ms,
+         kernel_ms_again=kernel_ms_again,
          kernel_whole_range_own_ms=own_ms, plain_ms=plain_ms,
          frame_ms=frame_ms, bound_ms=k1_bound_ms, bound_by=k1_bound_by,
          work=k1_work,
@@ -714,6 +739,8 @@ def main() -> int:
     args, march = kernel_inputs(vol, tf_ramp, cam, settings)
     g = cotangent((FRAME_H, FRAME_W, 4), 7)
     k1_ms = cuda_ms(lambda: march_forward(*args, **march), 5)
+    k1_device_ms = device_ms(lambda: march_forward(*args, **march), 5,
+                             "march_fwd_kernel")[0]
     out = march_forward(*args, **march)
     k2_ms = cuda_ms(lambda: march_backward(*args, out, g, **march), 5)
     k2_bound_ms, k2_bound_by, k2_work = bound("march_bwd", args, march)
@@ -724,6 +751,8 @@ def main() -> int:
                                   OrbitCamera.from_angles(0.0, 20.0), s4)
     g4 = cotangent((256, 256, 4), 8)
     k1_view4_ms = cuda_ms(lambda: march_forward(*args4, **march4), 5)
+    k1_view4_device_ms = device_ms(lambda: march_forward(*args4, **march4), 5,
+                                   "march_fwd_kernel")[0]
     out4 = march_forward(*args4, **march4)
     k2_view4_ms = cuda_ms(
         lambda: march_backward(*args4, out4, g4, **march4), 5)
@@ -801,10 +830,13 @@ def main() -> int:
     emit(phase="timing_train_step",
          workload=f"{FRAME_N}^3 sphere, {FRAME_W}x{FRAME_H}, {FRAME_STEPS} "
          f"steps, ET off, ntf {NTF}", gpu=gpu, nvidia_smi=smi,
-         k1_ms=k1_ms, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
+         k1_ms=k1_ms, k1_device_ms=k1_device_ms, k2_ms=k2_ms,
+         k2_bound_ms=k2_bound_ms,
          k2_bound_by=k2_bound_by, k2_work=k2_work,
          config4_view=dict(shape=[256, 256], camera=[0.0, 20.0],
-                           k1_ms=k1_view4_ms, k2_ms=k2_view4_ms,
+                           k1_ms=k1_view4_ms,
+                           k1_device_ms=k1_view4_device_ms,
+                           k2_ms=k2_view4_ms,
                            bounds=view4_bounds),
          kernel_fwd_bwd_step_ms=step_ms,
          rest_of_step_ms=step_ms - k1_ms - k2_ms, adam_256cubed_ms=adam_ms,
@@ -822,7 +854,8 @@ def main() -> int:
          "replaces": KERNELS["march_fwd"][1],
          "launches": main_launches["march_fwd"],
          "max_abs_err": max(err, own_fwd_err),
-         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
+         "ms": kernel_ms, "device_ms": kernel_device_ms,
+         "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": None,
          "launches_per_step": {k: v["march_fwd"] for k, v in
                                launches_per_step.items()}},

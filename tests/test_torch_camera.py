@@ -12,6 +12,8 @@ Tolerances:
   differently.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,3 +131,26 @@ def test_ray_grid_wide_fov_and_reference_arrays():
     _, dirs = tcam.ray_grid(tc, 20, 30, fov_y_degrees=90.0)
     _, jdirs = jcam.ray_grid(jc, 20, 30, fov_y_degrees=90.0)
     np.testing.assert_allclose(n(dirs), np.asarray(jdirs), atol=RAY_ATOL)
+
+
+@pytest.mark.parametrize("allow", [True, False])
+def test_ray_grid_leaves_the_tf32_flag_as_the_caller_set_it(allow):
+    """``ray_grid`` writes no process-wide flag: TF32 stays as set, and the
+    rays are those of the JAX package either way."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        _, dirs = tcam.ray_grid(tcam.OrbitCamera.from_angles(30.0, 20.0),
+                                24, 32)
+        assert torch.backends.cuda.matmul.allow_tf32 is allow
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    _, jdirs = jcam.ray_grid(jcam.OrbitCamera.from_angles(30.0, 20.0), 24, 32)
+    np.testing.assert_allclose(n(dirs), np.asarray(jdirs), atol=RAY_ATOL)
+
+
+def test_camera_module_assigns_no_backend_flag():
+    with open(tcam.__file__) as f:
+        src = f.read()
+    assert not re.search(r"torch\.backends\.[\w.]+\s*=[^=]", src)
+    assert "allow_tf32" not in src

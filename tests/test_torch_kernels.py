@@ -24,6 +24,8 @@ import re
 import shutil
 import stat
 import subprocess
+import time
+import weakref
 
 import numpy as np
 import pytest
@@ -90,6 +92,17 @@ def case_params(name):
         c["et"] = True
     elif name == "tf_past_48k_shared_memory":
         c["tf"] = rng.uniform(size=(4096, 4)).astype(np.float32)
+    elif name == "graze_faces":
+        # looking straight at a face: the silhouette rays run along the
+        # four side faces, where K1 takes its border path
+        c["camera"] = (0.0, 0.0, 3.0)
+    elif name == "graze_corner":
+        # looking down the cube's diagonal, at a corner
+        c["camera"] = (45.0, 35.26, 3.0)
+    elif name == "grid_2":
+        c["vol"] = rng.uniform(size=(2, 2, 2)).astype(np.float32)
+    elif name == "close_wide_fov_et":
+        c["camera"], c["fov"], c["et"] = (30.0, 20.0, 0.9), 90.0, True
     c["march"] = dict(num_steps=STEPS, step_size=1.8 / STEPS,
                       early_termination=c["et"], termination_eps=1.0 / 255.0)
     return c
@@ -279,33 +292,72 @@ SHIM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "cuda_on_cpu")
 
 
-@pytest.fixture(scope="module")
-def cpu_kernels(tmp_path_factory):
-    """K1 and K2 from ``csrc/`` compiled by g++ against the CPU stand-in
-    for the CUDA runtime (``tests/cuda_on_cpu/cuda_runtime.h``), bound as
-    ``kernels/march.py`` binds the nvcc builds."""
+def compile_for_cpu(src_path, out_dir, *flags):
+    """``src_path`` (a CUDA source) compiled by g++ against the CPU
+    stand-in for the CUDA runtime (``tests/cuda_on_cpu/cuda_runtime.h``)
+    into a shared library under ``out_dir``; returns its path."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the CPU")
+    with open(src_path) as f:
+        src = f.read()
+    src = re.sub(r"(\w+)<<<([^,]+), ([^,]+), .*>>>\(",
+                 r"emul::Launch(\2, \3)(\1, ", src)
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"static \1 \2[1 << 17];", src)
+    stem = os.path.splitext(os.path.basename(src_path))[0] + "".join(
+        f.lstrip("-").replace("=", "_") for f in flags)
+    cpp, lib = out_dir / f"{stem}.cpp", out_dir / f"lib{stem}.so"
+    cpp.write_text(src)
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", f"-I{SHIM_DIR}", f"-I{_build.CSRC_DIR}", *flags,
+         "-o", str(lib), str(cpp)], capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return str(lib)
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels(tmp_path_factory):
+    """K1 and K2 from ``csrc/`` compiled by g++ for the CPU, bound as
+    ``kernels/march.py`` binds the nvcc builds."""
     out = tmp_path_factory.mktemp("cuda_on_cpu")
-    libs = {}
-    for name in ("march_fwd", "march_bwd"):
-        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
-            src = f.read()
-        src = re.sub(r"(\w+)<<<([^,]+), ([^,]+), .*>>>\(",
-                     r"emul::Launch(\2, \3)(\1, ", src)
-        src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
-                     r"static \1 \2[1 << 17];", src)
-        cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
-        cpp.write_text(src)
-        proc = subprocess.run(
-            [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-             "-shared", "-pthread", f"-I{SHIM_DIR}", f"-I{_build.CSRC_DIR}",
-             "-o", str(lib), str(cpp)], capture_output=True, text=True,
-            timeout=300)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        libs[name] = march._bind(name, ctypes.CDLL(str(lib)))
-    return libs
+    return {name: march._bind(name, ctypes.CDLL(compile_for_cpu(
+        os.path.join(_build.CSRC_DIR, name + ".cu"), out)))
+        for name in ("march_fwd", "march_bwd")}
+
+
+# The stand-in's barrier timeout for the fault cases below, in seconds.
+FAULT_TIMEOUT_S = 2
+
+
+@pytest.fixture(scope="module")
+def fault_kernels(tmp_path_factory):
+    lib = ctypes.CDLL(compile_for_cpu(
+        os.path.join(SHIM_DIR, "collective_faults.cu"),
+        tmp_path_factory.mktemp("cuda_on_cpu_faults"),
+        f"-DEMUL_BARRIER_TIMEOUT_MS={FAULT_TIMEOUT_S * 1000}"))
+    lib.one_warp_launch.restype = ctypes.c_int
+    lib.one_warp_launch.argtypes = [ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+@pytest.mark.parametrize("which,code,value", [
+    (0, 0, -1),     # all 32 lanes vote: every bit set
+    (1, 702, 0),    # lane 0 alone: cudaErrorLaunchTimeout, no hang
+    (2, 0, 31)])    # lane 0 returns before __syncthreads: no hang
+def test_cpu_stand_in_fails_a_skipped_collective_instead_of_hanging(
+        fault_kernels, which, code, value):
+    """A warp collective that one lane calls alone fails its launch within
+    the stand-in's barrier timeout, and the process goes on; a thread that
+    returns early holds up no later ``__syncthreads``."""
+    out = ctypes.c_int(0)
+    t0 = time.perf_counter()
+    got = fault_kernels.one_warp_launch(which, ctypes.byref(out))
+    assert time.perf_counter() - t0 < FAULT_TIMEOUT_S + 10
+    assert (got, out.value) == (code, value)
 
 
 def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
@@ -319,14 +371,21 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
     window = march._window("cpu_launch", "cpu", *args[5:])
     steps = (kw["num_steps"], kw["step_size"], int(kw["early_termination"]),
              kw["termination_eps"], 1.0 - march.ALPHA_EPS)
-    head = (0, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-            vol.data_ptr(), *vol.shape, *own, tf.data_ptr(), tf.shape[0])
+    tail = (*vol.shape, *own, tf.data_ptr(), tf.shape[0])
+    rays = (0, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr())
     if out is None:
+        lib = libs["march_fwd"]
+        handle, tex = ctypes.c_void_p(), ctypes.c_ulonglong()
+        assert lib.march_fwd_texture_alloc(0, *vol.shape, ctypes.byref(handle),
+                                           ctypes.byref(tex)) == 0
+        assert lib.march_fwd_texture_fill(handle, vol.data_ptr(), None) == 0
         res = torch.empty((h, w, 4))
-        code = libs["march_fwd"].march_fwd_launch(
-            *head, res.data_ptr(), h, w, window.data_ptr(), *steps, None)
+        code = lib.march_fwd_launch(*rays, tex.value, *tail, res.data_ptr(),
+                                    h, w, window.data_ptr(), *steps, None)
+        assert lib.march_fwd_texture_free(handle) == 0
         assert code == 0
         return res
+    head = (*rays, vol.data_ptr(), *tail)
     g = g.contiguous()
     vol_g = torch.zeros_like(vol)
     tf_g = torch.zeros((3,) + tuple(tf.shape), dtype=torch.float64)
@@ -349,7 +408,17 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
     # outside the image, a wide fan of rays, 4096 texels, on chunks too
     ("degenerate_window", None), ("image_30x20", None),
     ("close_wide_fov", None), ("tf_past_48k_shared_memory", None),
-    ("close_wide_fov", (0, 4, 1)), ("image_30x20", (2, 2, 0))])
+    ("close_wide_fov", (0, 4, 1)), ("image_30x20", (2, 2, 0)),
+    # K1's border path: rays along the faces and at a corner, a grid of 2^3,
+    # a camera close in with early termination
+    ("graze_faces", None), ("graze_corner", None), ("grid_2", None),
+    ("close_wide_fov_et", None),
+    # K1's step interval of a chunk: every axis, both view directions, rays
+    # whose interval is empty (graze_faces along x), early termination
+    ("graze_faces", (2, 4, 1)), ("graze_faces", (0, 4, 2)),
+    ("orient_30_20", (2, 4, 2)), ("orient_200_5", (1, 4, 2)),
+    ("early_termination", (1, 4, 1)), ("early_termination", (0, 4, 2)),
+    ("graze_corner", (1, 4, 3))])
 def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
                                                      own, table):
     """The CUDA sources, compiled by g++ for the CPU, against the plain
@@ -371,6 +440,119 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
         assert a.shape == b.shape, what
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
                                    rtol=BWD_RTOL, err_msg=what)
+
+
+def owned_steps_proxy(pos0, dirs, own, num_steps: int, step_size: float):
+    """Each ray's steps ``[k_begin, k_end)`` on the depth chunk ``own``, as
+    ``csrc/march_common.cuh:owned_steps`` computes them, in float32 NumPy.
+    A proxy: it shows that a case's rays reach empty intervals, not what
+    the kernel walked."""
+    f = np.float32
+    axis, a_start, body, n_total = own
+    o = pos0[..., 2 - axis].numpy()
+    per_step = dirs[..., 2 - axis].numpy() * f(step_size)
+    u0 = (f(-1 if a_start == 0 else a_start) + f(0.5)) / f(n_total) - f(1e-5)
+    u1 = (f(a_start + body) + f(0.5)) / f(n_total) + f(1e-5)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ka, kb = (u0 - o) / per_step, (u1 - o) / per_step
+    k_begin = np.clip(np.floor(np.minimum(ka, kb)) - 1, 0, num_steps)
+    k_end = np.clip(np.ceil(np.maximum(ka, kb)) + 1, 0, num_steps)
+    keep = (per_step == 0) | np.isnan(ka) | np.isnan(kb)
+    k_begin = np.where(keep, 0, k_begin).astype(int)
+    return k_begin, np.maximum(np.where(keep, num_steps, k_end),
+                               k_begin).astype(int)
+
+
+def test_chunk_cases_have_rays_with_an_empty_step_interval():
+    """The chunk cases above reach K1's empty step interval: hit rays that
+    walk no step of the chunk at all (by ``owned_steps_proxy``)."""
+    args, kw = own_inputs("graze_faces", 2, 4, 1, "cpu")
+    k_begin, k_end = owned_steps_proxy(args[2], args[3], kw["own"],
+                                       kw["num_steps"], kw["step_size"])
+    hit = args[4].numpy()
+    assert ((k_end == k_begin) & hit).sum() > 100
+    assert ((k_end - k_begin > 0) & hit).sum() > 100
+
+
+class _FakeTextureLib:
+    """The texture entry points of K1's library, recording their calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def march_fwd_texture_alloc(self, dev, nz, ny, nx, handle, tex):
+        self.calls.append(("alloc", (nz, ny, nx)))
+        handle._obj.value = tex._obj.value = len(self.calls)
+        return 0
+
+    def march_fwd_texture_fill(self, handle, ptr, stream):
+        self.calls.append(("fill", handle.value))
+        return 0
+
+    def march_fwd_texture_free(self, handle):
+        self.calls.append(("free", handle.value))
+        return 0
+
+
+class _FakeEvent:
+    waits = 0
+
+    def synchronize(self):
+        _FakeEvent.waits += 1
+
+
+class _FakeStream:
+    def wait_event(self, event):
+        pass
+
+
+def test_k1_texture_cache_copies_when_the_grid_changes(monkeypatch):
+    """``_grid_texture``'s bookkeeping, on CPU tensors with the library's
+    texture calls recorded: a grid is copied in again after an in-place
+    change, for another tensor, for a tensor at a freed grid's address and
+    at every launch on an inference tensor; shapes taken in turns keep
+    their arrays, and a shape past ``TEXTURES_PER_DEVICE`` frees the least
+    recently used one, after waiting for the launches that read it."""
+    monkeypatch.setattr(march, "_textures", {})
+    monkeypatch.setattr(march.torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(march.torch.cuda, "current_stream",
+                        lambda device=None: _FakeStream())
+    monkeypatch.setattr(_FakeEvent, "waits", 0)
+    lib = _FakeTextureLib()
+
+    def launch(vol):
+        n = len(lib.calls)
+        march._grid_texture(lib, 0, vol, None)
+        return [c[0] for c in lib.calls[n:]]
+
+    vol = torch.rand(4, 5, 6)
+    assert launch(vol) == ["alloc", "fill"]
+    assert launch(vol) == [] and launch(vol.detach()) == []
+    vol.mul_(0.5)                               # in place: copied again
+    assert launch(vol) == ["fill"] and launch(vol) == []
+    other = vol.clone()
+    assert launch(other) == ["fill"]            # another tensor
+    assert launch(vol) == ["fill"]
+    assert launch(vol.view(5, 4, 6)) == ["alloc", "fill"]  # another shape
+    assert launch(vol) == []                    # ... and back: still copied
+    gone = weakref.ref(other)
+    del other
+    assert gone() is None                       # the cache holds no grid
+    # a new tensor, at the freed grid's address where the allocator gives
+    # that again, with the same version
+    assert launch(torch.empty(4, 5, 6)) == ["fill"]
+    with torch.inference_mode():
+        inf = torch.rand(4, 5, 6)
+    assert launch(inf) == ["fill"] and launch(inf) == ["fill"]
+    assert _FakeEvent.waits == 0
+    for n in range(1, march.TEXTURES_PER_DEVICE - 1):
+        launch(torch.rand(n, 2, 2))
+    assert len(march._textures[0]) == march.TEXTURES_PER_DEVICE
+    oldest = march._textures[0][(5, 4, 6)].handle.value
+    assert launch(torch.rand(9, 2, 2)) == ["free", "alloc", "fill"]
+    assert _FakeEvent.waits == 1 and ("free", oldest) in lib.calls
+    assert (5, 4, 6) not in march._textures[0] and \
+        (4, 5, 6) in march._textures[0]
 
 
 @pytest.fixture
@@ -578,3 +760,87 @@ def test_kernel_whole_volume_range_equals_no_range_on_cuda(cuda, axis):
     got = march_forward(*chunk, **kw, own=(axis, 0, N, N))
     torch.cuda.synchronize()
     assert torch.equal(got, whole)
+
+
+@pytest.mark.cuda
+def test_k1_texture_follows_the_grid_on_cuda(cuda):
+    """K1 reads the grid through a cached copy in a texture: the copy is
+    made again after an in-place change of the grid (its version counter),
+    for another tensor at the same shape, and for another shape; each
+    result is bit for bit the plain version's on the grid as it is then."""
+    args, kw = case_inputs("orient_30_20", cuda)
+    vol = args[0].clone()
+
+    def check(v, own=None):
+        a = (v,) + args[1:]
+        got = march_forward(*a, **kw, own=own)
+        torch.cuda.synchronize()
+        assert torch.equal(got, march_forward_plain(*a, **kw, own=own))
+        return got
+
+    first = check(vol)
+    assert torch.equal(check(vol), first)          # the cached copy
+    vol.mul_(0.5)                                  # in place: copied again
+    assert not torch.equal(check(vol), first)
+    check(vol.flip(0).contiguous())                # another tensor
+    check(vol.detach())                            # the same grid, a view
+    check(chunk_of(vol, 1, N // 4, 0), own=(0, N // 4, N // 4, N))
+    check(vol)                                     # the first shape again
+    tmp = vol.flip(1).contiguous()
+    check(tmp)
+    gone = weakref.ref(tmp)
+    del tmp
+    assert gone() is None                          # the cache holds no grid
+    check(vol.flip(2).contiguous())   # where the allocator reuses tmp's block
+    march.release_grid_textures()
+    check(vol)
+
+
+@pytest.mark.cuda
+def test_k1_on_inference_tensors_matches_plain_on_cuda(cuda):
+    """Under ``torch.inference_mode`` (tensors without a version counter)
+    K1 and ``render(method="kernel")`` run, copy the grid at every launch,
+    and follow an in-place change bit for bit."""
+    args, kw = case_inputs("orient_30_20", cuda)
+    cam = OrbitCamera.from_angles(30.0, 20.0)
+    settings = RenderSettings(height=24, width=32, step_size=1.8 / STEPS)
+    with torch.inference_mode():
+        vol = args[0].clone()
+        for _ in range(2):
+            a = (vol,) + args[1:]
+            got = march_forward(*a, **kw)
+            assert torch.equal(got, march_forward_plain(*a, **kw))
+            img = render(vol, args[1], cam, settings, method="kernel")
+            assert torch.equal(img, render(vol, args[1], cam, settings,
+                                           method="fused"))
+            vol.mul_(0.5)
+    assert vol.is_inference()
+
+
+@pytest.mark.cuda
+def test_k1_whole_and_chunk_in_turns_without_host_sync_on_cuda(cuda):
+    """A whole grid and a depth chunk of it, marched in turns as a depth
+    split's whole render and chunk renders are, each keep their texture
+    array: under sync-debug mode "error" no launch allocates, frees or
+    waits, and each result is bit for bit the plain version's."""
+    args, kw = case_inputs("orient_120_-35", cuda)
+    own = (0, 0, N // 2, N)
+    chunk = (chunk_of(args[0], 0, N // 2, 0),) + args[1:]
+    march_forward(*args, **kw)
+    march_forward(*chunk, **kw, own=own)
+    torch.cuda.synchronize()
+    textures = march._textures[torch.cuda.current_device()]
+    arrays = {s: t.handle.value for s, t in textures.items()}
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            got.append(march_forward(*args, **kw))
+            got.append(march_forward(*chunk, **kw, own=own))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {s: t.handle.value for s, t in textures.items()} == arrays
+    want = (march_forward_plain(*args, **kw),
+            march_forward_plain(*chunk, **kw, own=own))
+    for i, x in enumerate(got):
+        assert torch.equal(x, want[i % 2])

@@ -33,8 +33,10 @@
 // shared-memory f64 atomicAdd (and an f32 one too) compiles to a
 // compare-and-swap loop (ATOMS.CAST.SPIN), and the flushes of one warp
 // land on a few texels: neighbouring rays cross the same densities, so up
-// to 32 lanes retried on one address.  What remains is K1's march (8
-// dependent gathers per step) plus the backward arithmetic.
+// to 32 lanes retried on one address.  What remains is the re-march (8
+// gathers per step, through march_common.cuh:fetch_corners: one base
+// offset and constant strides where all 8 corners lie inside the array)
+// plus the backward arithmetic.
 //
 // Design on the card:
 //   * 16x16-pixel blocks, one thread per ray, the TF table in shared memory
@@ -146,9 +148,11 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
                      int width, const float* __restrict__ window,
                      int num_steps, float dt, int early_termination,
                      float eps, float amax, float alpha_eps) {
-  // Dynamic shared memory: with kSharedTable the (ntf, 4) f64 gradient
-  // table first (8-byte aligned), then the (ntf, 4) f32 TF table.
-  extern __shared__ double smem_d[];
+  // Dynamic shared memory, 16-byte aligned: with kSharedTable the (ntf, 4)
+  // f64 gradient table first, then the (ntf, 4) f32 TF table (read as
+  // float4 by march_common.cuh:shade).
+  extern __shared__ float4 smem4[];
+  double* smem_d = reinterpret_cast<double*>(smem4);
   float* tf_s =
       reinterpret_cast<float*>(kSharedTable ? smem_d + ntf * 4 : smem_d);
   double* tfg_copy = tf_g + static_cast<int64_t>(
@@ -325,10 +329,11 @@ int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(false, ntf);
-  err = march::allow_dynamic_smem(march_bwd_kernel<false>, smem);
+  const auto kernel = march_bwd_kernel<false>;
+  err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, march_bwd_kernel<false>, kTile * kTile, smem);
+      blocks_per_sm, kernel, kTile * kTile, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device));

@@ -5,10 +5,12 @@
 // and lerp weights must equal K1's bit for bit: a recomputed density one
 // ulp off can land in another TF bin, which changes the lerp slope and
 // gives an O(1) gradient error at that voxel (on the TPU this drift broke
-// the 1e-4 bar, docs/PARITY.md).  So both kernels call this one function,
-// and both libraries are built with the same flags (-fmad=false: no
-// multiply-add is contracted, every operation rounds as in the plain
-// PyTorch version, core/fused.py).
+// the 1e-4 bar, docs/PARITY.md).  So both kernels locate and shade a
+// sample with the same functions (locate_step, shade), both read the same
+// f32 voxel values (K2 with __ldg, fetch_corners; K1 through a texture of
+// the grid with point filtering, march_fwd.cu), and both libraries are
+// built with the same flags (-fmad=false: no multiply-add is contracted,
+// every operation rounds as in the plain PyTorch version, core/fused.py).
 //
 // The operations are those of the plain version, in its order:
 //   pos = pos0 + (float(k)*dt)*dir;  stop once pos leaves [0,1]^3;
@@ -111,14 +113,21 @@ __device__ __forceinline__ float corner_weight(const Sample& s, int cx,
          (cz ? s.wz : 1.0f - s.wz);
 }
 
-// Samples step k of `ray`.  Returns kLeftBox once the position has left
-// the unit cube (it never re-enters: each coordinate is monotone in k under
+// A sample is taken in three parts, so that the two kernels can fetch the
+// voxels each in its own way: locate_step (position, box, slicing and
+// ownership tests, the trilinear corner and weights), the fetch of the 8
+// voxels (fetch_corners for K2; K1 reads a texture, march_fwd.cu) and
+// shade (trilinear sum, window, TF lerp).  sample_step runs the three in
+// order with fetch_corners.
+
+// Locates step k of `ray`.  Returns kLeftBox once the position has left the
+// unit cube (it never re-enters: each coordinate is monotone in k under
 // round-to-nearest), kOutsideSlice outside the slicing window, kNotOwned
-// where another depth chunk takes the sample, and kSampled with `s` filled
-// in otherwise.  `tf_s` is the (ntf, 4) table.
-__device__ __forceinline__ int sample_step(
-    const float* __restrict__ vol, const Grid& grid, const float* tf_s,
-    int ntf, const Ray& ray, const Window& win, int k, float dt, Sample& s) {
+// where another depth chunk takes the sample, and kSampled with the corner
+// (in the array) and the weights of `s` filled in otherwise.
+__device__ __forceinline__ int locate_step(const Grid& grid, const Ray& ray,
+                                           const Window& win, int k, float dt,
+                                           Sample& s) {
   const float kdt = static_cast<float>(k) * dt;
   const float x = ray.ox + kdt * ray.dx, y = ray.oy + kdt * ray.dy,
               z = ray.oz + kdt * ray.dz;
@@ -142,29 +151,73 @@ __device__ __forceinline__ int sample_step(
   s.y0 = static_cast<int>(y0f);
   s.z0 = static_cast<int>(z0f);
   if (grid.own_axis >= 0) {
-    int& c = grid.own_axis == 0 ? s.z0 : grid.own_axis == 1 ? s.y0 : s.x0;
+    // selects, not a reference to the member: a reference chosen at run
+    // time would keep the corner in local memory
+    const int c = grid.own_axis == 0   ? s.z0
+                  : grid.own_axis == 1 ? s.y0
+                                       : s.x0;
     if (c < grid.own_lo || c >= grid.own_hi) return kNotOwned;
-    c -= grid.a_start;
+    s.z0 -= grid.own_axis == 0 ? grid.a_start : 0;
+    s.y0 -= grid.own_axis == 1 ? grid.a_start : 0;
+    s.x0 -= grid.own_axis == 2 ? grid.a_start : 0;
   }
+  return kSampled;
+}
+
+// The 8 voxels of the trilinear fetch at corner (s.x0, s.y0, s.z0), in the
+// order z, y, x (v[cz*4 + cy*2 + cx]), 0 for a corner outside the array
+// (CLAMP_TO_BORDER).
+//   * Interior (all 8 corners inside, most steps): one unsigned compare per
+//     axis, one base offset, and the other 7 corners at the constant
+//     strides 1, nx and nx*ny.
+//   * Border: each corner tested and loaded on its own.
+// 32-bit offsets where the array allows them were measured and not kept:
+// K2 took the same time with them (PERF.md §6, PR 6).
+__device__ __forceinline__ void fetch_corners(const float* __restrict__ vol,
+                                              const Grid& grid,
+                                              const Sample& s,
+                                              float (&v)[8]) {
+  if (static_cast<unsigned>(s.x0) < static_cast<unsigned>(grid.nx - 1) &&
+      static_cast<unsigned>(s.y0) < static_cast<unsigned>(grid.ny - 1) &&
+      static_cast<unsigned>(s.z0) < static_cast<unsigned>(grid.nz - 1)) {
+    const int64_t sy = grid.nx;
+    const int64_t sz = sy * grid.ny;
+    const float* p0 = vol + voxel_offset(s.x0, s.y0, s.z0, grid.nx, grid.ny);
+    const float* p1 = p0 + sz;
+    v[0] = __ldg(p0);
+    v[1] = __ldg(p0 + 1);
+    v[2] = __ldg(p0 + sy);
+    v[3] = __ldg(p0 + sy + 1);
+    v[4] = __ldg(p1);
+    v[5] = __ldg(p1 + 1);
+    v[6] = __ldg(p1 + sy);
+    v[7] = __ldg(p1 + sy + 1);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int ix = s.x0 + (i & 1), iy = s.y0 + ((i >> 1) & 1),
+              iz = s.z0 + (i >> 2);
+    v[i] = in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)
+               ? __ldg(vol + voxel_offset(ix, iy, iz, grid.nx, grid.ny))
+               : 0.0f;
+  }
+}
+
+// Trilinear sum of the fetched voxels (corners in the order z, y, x, as the
+// plain version adds them), window, and the CLAMP_TO_EDGE TF lerp: fills in
+// the rest of `s`.  `tf_s` is the (ntf, 4) table, 16-byte aligned.
+__device__ __forceinline__ void shade(const float (&v)[8],
+                                      const float* tf_s, int ntf,
+                                      const Window& win, Sample& s) {
   float density = 0.0f;
 #pragma unroll
-  for (int cz = 0; cz < 2; ++cz) {
-#pragma unroll
-    for (int cy = 0; cy < 2; ++cy) {
-#pragma unroll
-      for (int cx = 0; cx < 2; ++cx) {
-        const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
-        const float v =
-            in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)
-                ? __ldg(vol + voxel_offset(ix, iy, iz, grid.nx, grid.ny))
-                : 0.0f;
-        density = density + v * corner_weight(s, cx, cy, cz);
-      }
-    }
+  for (int i = 0; i < 8; ++i) {
+    density = density + v[i] * corner_weight(s, i & 1, (i >> 1) & 1, i >> 2);
   }
 
-  // CLAMP_TO_EDGE TF lerp.  The float clamp to [-1, ntf] before the int
-  // conversion changes no bin and keeps a huge t in range.
+  // The float clamp to [-1, ntf] before the int conversion changes no bin
+  // and keeps a huge t in range.
   const float fntf = static_cast<float>(ntf);
   s.t = (density - win.dmin) * win.inv_w;
   const float tx = s.t * fntf - 0.5f;
@@ -173,13 +226,60 @@ __device__ __forceinline__ int sample_step(
   const int i0 = static_cast<int>(fminf(fmaxf(i0f, -1.0f), fntf));
   s.lo = min(max(i0, 0), ntf - 1);
   s.hi = min(max(i0 + 1, 0), ntf - 1);
-  const float* tlo = tf_s + s.lo * 4;
-  const float* thi = tf_s + s.hi * 4;
-  s.r = tlo[0] * (1.0f - s.w) + thi[0] * s.w;
-  s.g = tlo[1] * (1.0f - s.w) + thi[1] * s.w;
-  s.b = tlo[2] * (1.0f - s.w) + thi[2] * s.w;
-  s.a = tlo[3] * (1.0f - s.w) + thi[3] * s.w;
+  const float4 tlo = reinterpret_cast<const float4*>(tf_s)[s.lo];
+  const float4 thi = reinterpret_cast<const float4*>(tf_s)[s.hi];
+  s.r = tlo.x * (1.0f - s.w) + thi.x * s.w;
+  s.g = tlo.y * (1.0f - s.w) + thi.y * s.w;
+  s.b = tlo.z * (1.0f - s.w) + thi.z * s.w;
+  s.a = tlo.w * (1.0f - s.w) + thi.w * s.w;
+}
+
+// Samples step k of `ray`: locate_step's kinds, and for kSampled `s` filled
+// in completely.
+__device__ __forceinline__ int sample_step(
+    const float* __restrict__ vol, const Grid& grid, const float* tf_s,
+    int ntf, const Ray& ray, const Window& win, int k, float dt, Sample& s) {
+  const int kind = locate_step(grid, ray, win, k, dt, s);
+  if (kind != kSampled) return kind;
+  float v[8];
+  fetch_corners(vol, grid, s, v);
+  shade(v, tf_s, ntf, win, s);
   return kSampled;
+}
+
+// The steps [k_begin, k_end) of `ray` that can hold a sample the depth
+// chunk of `grid` owns; [0, num_steps) for the whole volume.  A sample is
+// owned where its lower corner c along own_axis lies in [own_lo, own_hi),
+// that is where the coordinate u lies in [(own_lo + 0.5)/n, (own_hi +
+// 0.5)/n) with n the whole volume's extent.  That slab, widened by 1e-5 (a
+// few ulp of the coordinates in [0, 1], against the rounding of u and of
+// this computation) and then by one step on each side, is turned into
+// steps.  locate_step's exact test still runs on every step inside, so
+// each sample is the one the plain version takes; the steps outside own
+// nothing and add exactly 0, and since T is 1 until the first owned
+// sample, early termination cannot end a ray before k_begin.
+__device__ __forceinline__ void owned_steps(const Grid& grid, const Ray& ray,
+                                            float dt, int num_steps,
+                                            int& k_begin, int& k_end) {
+  k_begin = 0;
+  k_end = num_steps;
+  if (grid.own_axis < 0) return;
+  const int axis = grid.own_axis;
+  const float o = axis == 0 ? ray.oz : axis == 1 ? ray.oy : ray.ox;
+  const float d = axis == 0 ? ray.dz : axis == 1 ? ray.dy : ray.dx;
+  const float n =
+      static_cast<float>(axis == 0 ? grid.gz : axis == 1 ? grid.gy : grid.gx);
+  const float u0 = (static_cast<float>(grid.own_lo) + 0.5f) / n - 1e-5f;
+  const float u1 = (static_cast<float>(grid.own_hi) + 0.5f) / n + 1e-5f;
+  const float per_step = d * dt;
+  const float ka = (u0 - o) / per_step, kb = (u1 - o) / per_step;
+  // a ray parallel to the slab (or a NaN) keeps every step
+  if (!(fabsf(per_step) > 0.0f) || ka != ka || kb != kb) return;
+  const float top = static_cast<float>(num_steps);
+  const float lo = fminf(fmaxf(floorf(fminf(ka, kb)) - 1.0f, 0.0f), top);
+  const float hi = fminf(fmaxf(ceilf(fmaxf(ka, kb)) + 1.0f, 0.0f), top);
+  k_begin = static_cast<int>(lo);
+  k_end = max(static_cast<int>(hi), k_begin);
 }
 
 // The opacity clamp a <= amax of the plain version; NaN propagates, as

@@ -8,7 +8,9 @@
   ``core.fused.march_backward_prepared``.
 
 Ray setup (``core.marcher.prepare_rays``: box entry, entry clamp, window
-reciprocal) stays in torch; the kernels take over the per-step loops.
+reciprocal) stays in torch; the kernels take over the per-step loops.  K1
+reads the grid through a texture: a copy of it in a 3D array, made again
+only when the grid changes (``_grid_texture``), kept per device and shape.
 :func:`make_kernel_marcher` ties K1 and K2 into one differentiable marcher.
 
 :func:`march_forward` and :func:`march_backward` are the entry points.  On
@@ -19,6 +21,8 @@ kernel or raise.  They never fall back to the plain version on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 
 import torch
 
@@ -46,7 +50,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of kernel library ``name`` on ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "march_fwd":
-        launch = [i, p, p, p, p, i, i, i,       # device .. nx
+        launch = [i, p, p, p, ctypes.c_ulonglong,   # device .. tex
+                  i, i, i,                      # nz, ny, nx
                   i, i, i, i,                   # own: axis, start, body, total
                   p, i, p, i, i,                # tf .. width
                   p,                            # window
@@ -65,6 +70,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         i, ctypes.POINTER(ctypes.c_int)]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     getattr(lib, f"{name}_error_string").argtypes = [i]
+    if name == "march_fwd":
+        lib.march_fwd_texture_alloc.restype = i
+        lib.march_fwd_texture_alloc.argtypes = [
+            i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.march_fwd_texture_fill.restype = i
+        lib.march_fwd_texture_fill.argtypes = [p, p, p]
+        lib.march_fwd_texture_free.restype = i
+        lib.march_fwd_texture_free.argtypes = [p]
     if name == "march_bwd":
         lib.march_bwd_occupancy.restype = i
         lib.march_bwd_occupancy.argtypes = [
@@ -178,6 +192,87 @@ def _one_wave(lib, dev_index: int, ntf: int) -> int:
     return per_sm.value * sms.value
 
 
+@dataclasses.dataclass
+class _GridTexture:
+    """K1's copy of a grid in a 3D array, read through a texture object."""
+    handle: ctypes.c_void_p       # for march_fwd_texture_fill / _free
+    tex: int                      # the texture object, for the launch
+    done: torch.cuda.Event        # recorded after each launch that read it
+    source: tuple = None          # what was copied in (_grid_source)
+
+
+#: K1's grid textures: for each device, an array per grid shape, the least
+#: recently used first (``_grid_texture``).
+_textures: dict = {}
+#: The arrays a device keeps at most; one more shape frees the oldest.
+TEXTURES_PER_DEVICE = 4
+
+
+def _grid_source(vol):
+    """What tells ``vol``'s voxels apart from others of its shape: a weak
+    reference to its storage, its address and its version counter (shared
+    by its views and ``detach()``); ``None`` for an inference tensor,
+    which has no version counter and is copied at every launch."""
+    if vol.is_inference():
+        return None
+    return (weakref.ref(vol.untyped_storage()), vol.data_ptr(),
+            vol._version)
+
+
+def _grid_texture(lib, dev_index: int, vol, stream) -> _GridTexture:
+    """The texture K1 reads ``vol`` through on device ``dev_index``.
+
+    Each device keeps an array for each of the last
+    ``TEXTURES_PER_DEVICE`` grid shapes it marched, so whole grids and
+    depth chunks taken in turns each keep theirs.  The voxels are copied
+    in again unless ``vol`` is the grid copied last at its shape, unchanged
+    since (the same live storage, address and version counter).  No
+    reference to the grid is kept: freeing it is not held up, and a grid
+    that takes a freed grid's address is copied in.  Freeing an array waits
+    for the device, so it happens only where a shape pushes out the oldest
+    array, or in :func:`release_grid_textures`.  A change that bypasses the
+    version counter (through ``.data`` or raw pointers) is not seen: change
+    the grid through the tensor itself, or pass another."""
+    shape = tuple(vol.shape)
+    textures = _textures.setdefault(dev_index, {})
+    entry = textures.pop(shape, None)
+    if entry is None:
+        if len(textures) >= TEXTURES_PER_DEVICE:
+            _free_texture(lib, textures.pop(next(iter(textures))))
+        handle, tex = ctypes.c_void_p(), ctypes.c_ulonglong()
+        _check_cuda(lib.march_fwd_texture_alloc(
+            dev_index, *shape, ctypes.byref(handle), ctypes.byref(tex)),
+            lib, "march_fwd", "allocating the grid texture")
+        entry = _GridTexture(handle, tex.value, torch.cuda.Event())
+    textures[shape] = entry             # now the most recently used
+    source = _grid_source(vol)
+    old = entry.source
+    if source is None or old is None or old[0]() is not source[0]() or \
+            old[1:] != source[1:]:
+        # a launch on another stream may still read the array
+        torch.cuda.current_stream(vol.device).wait_event(entry.done)
+        _check_cuda(lib.march_fwd_texture_fill(entry.handle, vol.data_ptr(),
+                                               stream),
+                    lib, "march_fwd", "copying the grid into its texture")
+        entry.source = source
+    return entry
+
+
+def _free_texture(lib, entry: _GridTexture) -> None:
+    entry.done.synchronize()            # no launch reads the array any more
+    _check_cuda(lib.march_fwd_texture_free(entry.handle), lib, "march_fwd",
+                "freeing the grid texture")
+
+
+def release_grid_textures() -> None:
+    """Frees K1's grid textures on every device (waiting for the launches
+    that read them); the next launch on a grid copies it in again."""
+    while _textures:
+        _, textures = _textures.popitem()
+        while textures:
+            _free_texture(load_library("march_fwd"), textures.popitem()[1])
+
+
 def _own_args(fn: str, own, vol) -> tuple:
     """The kernel's ``(own_axis, own_start, own_body, own_total)``:
     ``(-1, 0, 0, 0)`` for the whole volume."""
@@ -200,7 +295,10 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     one the halo) of a volume of ``n_total`` rows along array axis
     ``axis``, and only the samples the chunk owns are composited
     (``core.sampling.check_own``).  On CUDA every tensor must be float32
-    (``hit`` bool) and contiguous, on one device.  The output carries no
+    (``hit`` bool) and contiguous, on one device; the kernel reads ``vol``
+    through a copy in a texture, kept for the next launch on the same grid
+    (``_grid_texture``; :func:`release_grid_textures` frees the copies).
+    The output carries no
     graph: under grad mode, inputs that require grad raise; differentiate
     through :func:`make_kernel_marcher` (``render(method="kernel")``)
     instead.
@@ -231,14 +329,15 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
 
     out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    nz, ny, nx = vol.shape
+    texture = _grid_texture(lib, dev_index, vol, stream)
     code = lib.march_fwd_launch(
         dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-        vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
+        texture.tex, *vol.shape, *own, tf.data_ptr(), tf.shape[0],
         out.data_ptr(), height, width, window.data_ptr(),
         int(num_steps), float(step_size), int(bool(early_termination)),
         float(termination_eps), 1.0 - ALPHA_EPS, stream)
     _check_cuda(code, lib, "march_fwd", "launch")
+    texture.done.record(torch.cuda.current_stream(device))
     march_forward.launches += 1
     return out
 

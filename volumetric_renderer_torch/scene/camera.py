@@ -19,6 +19,8 @@ is ``world + 0.5``.
 
 All camera maths is float32 at full precision: a TF32 matmul (about three
 decimal digits) would move ray directions far past the renderer's 1e-5 bar.
+So no product here is a matmul: each is written out as broadcast products
+and sums, which no device runs in TF32, and no global flag is touched.
 """
 
 from __future__ import annotations
@@ -106,7 +108,7 @@ class OrbitCamera:
         pos = self.position()
         m = torch.eye(4, dtype=torch.float32, device=r.device)
         m[:3, :3] = r
-        m[:3, 3] = -(r @ pos)
+        m[:3, 3] = -(r * pos).sum(-1)
         return m
 
 
@@ -147,7 +149,12 @@ def projection_matrix(camera: OrbitCamera, aspect, fov_y_degrees=40.0,
     fov = torch.deg2rad(torch.tensor(fov_y_degrees, dtype=torch.float32,
                                      device=dev))
     p = perspective_rh_zo(fov, aspect, near, far, device=dev)
-    return (p @ coordinate_conversion(dev)) @ camera.view_matrix()
+    return _mm(_mm(p, coordinate_conversion(dev)), camera.view_matrix())
+
+
+def _mm(a, b):
+    """``a @ b`` for small matrices, as broadcast products and sums."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
 def ray_grid(camera: OrbitCamera, height: int, width: int,
@@ -161,11 +168,6 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
     (``volume.frag:23``) for every point of the rasterized cube.
     """
     dev = camera.orientation.device
-    if dev.type == "cuda":
-        # The (H*W, 4) x (4, 4) unprojection below is a cuBLAS matmul; with
-        # TF32 allowed it keeps ~3 decimal digits.  Ray directions need full
-        # float32, so TF32 matmuls are switched off for the process.
-        torch.backends.cuda.matmul.allow_tf32 = False
     aspect = float(width) / float(height)
     m = projection_matrix(camera, aspect, fov_y_degrees, near, far)
     m_inv = torch.linalg.inv(m)
@@ -177,11 +179,9 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
     ndc_y, ndc_x = torch.meshgrid(ys, xs, indexing="ij")
 
     def unproject(z):
-        clip = torch.stack(
-            [ndc_x, ndc_y, torch.full_like(ndc_x, z), torch.ones_like(ndc_x)],
-            dim=-1,
-        )
-        w = clip @ m_inv.T
+        # (ndc_x, ndc_y, z, 1) @ m_inv.T over m_inv's four columns
+        w = (ndc_x[..., None] * m_inv[:, 0] + ndc_y[..., None] * m_inv[:, 1]
+             + (z * m_inv[:, 2] + m_inv[:, 3]))
         return w[..., :3] / w[..., 3:4]
 
     p_near = unproject(0.25)
