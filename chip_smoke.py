@@ -34,7 +34,6 @@ import io
 import json
 import os
 import socket
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -94,22 +93,6 @@ def run(cmd):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
-
-
-def cuda_ms(fn, iters):
-    """Median device time of ``fn`` over ``iters`` runs after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def max_errs(got, want):
@@ -174,11 +157,17 @@ def main() -> int:
         return 1
 
     from volumetric_renderer_torch import models
-    from volumetric_renderer_torch.apps import optimize, render_cli
-    from volumetric_renderer_torch.apps.time_kernels import device_ms
+    from volumetric_renderer_torch.apps import (
+        ablation, bench, benchmark, optimize, render_cli, scaling, turntable,
+        viewer,
+    )
+    from volumetric_renderer_torch.apps.time_kernels import (
+        cuda_ms, device_ms,
+    )
     from volumetric_renderer_torch.core.marcher import (
         frame_inputs, prepare_rays,
     )
+    from volumetric_renderer_torch.data.formats import read_png_image
     from volumetric_renderer_torch.data.importer import import_volume
     from volumetric_renderer_torch.data.nrrd import write_nrrd
     from volumetric_renderer_torch.data.volume import Volume
@@ -199,13 +188,37 @@ def main() -> int:
     from volumetric_renderer_torch.parallel.train import (
         init_state, make_train_step,
     )
-    from volumetric_renderer_torch.render.api import render
-    from volumetric_renderer_torch.scene.camera import OrbitCamera
+    from volumetric_renderer_torch.render.api import (
+        composite_over, make_marcher, render,
+    )
+    from volumetric_renderer_torch.scene.camera import OrbitCamera, ray_grid
     from volumetric_renderer_torch.transfer.gradient import Gradient
     from volumetric_renderer_torch.utils.config import RenderSettings
+    from volumetric_renderer_torch.utils.sanitize import (
+        assert_deterministic, checked_render,
+    )
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     gpu = torch.cuda.get_device_name(0)
+
+    def counted(fn):
+        """``fn()`` with the kernels' launch counts and K1's texture-copy
+        count set to 0 just before; returns its result and the counts."""
+        torch.cuda.synchronize()
+        march_forward.launches = march_backward.launches = 0
+        march_forward.texture_fills = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"march_fwd": march_forward.launches,
+                     "march_bwd": march_backward.launches,
+                     "texture_fills": march_forward.texture_fills}
+
+    def quietly(fn, *args):
+        """``fn(*args)`` with its printed lines sent to stderr: this run's
+        stdout holds one JSON object per line."""
+        with contextlib.redirect_stdout(sys.stderr):
+            return fn(*args)
 
     def kernel_inputs(vol, tf, cam, settings, window=(None, None),
                       slicing=(None, None)):
@@ -700,6 +713,45 @@ def main() -> int:
          app_pixels_rays_per_s=c5_pixels["rays_per_s"],
          app_depth_rays_per_s=first["rays_per_s"])
     del state5, fixed5, target5, vol5, args5
+
+    # -- 3e. apps.benchmark: devices=1 in this one-rank NCCL group --------
+    t_phase = time.perf_counter()
+    bm_argv = ["--grid", str(FRAME_N), "--size", f"{FRAME_W}x{FRAME_H}",
+               "--steps", str(FRAME_STEPS), "--iters", "10"]
+    bm_fwd, n_fwd = counted(lambda: quietly(benchmark.main, bm_argv))
+    bm_grad, n_grad = counted(lambda: quietly(benchmark.main,
+                                              bm_argv + ["--grad"]))
+    # its checksums, as the JAX benchmark's: the sum of the frame and of
+    # the grid's gradient of mean(img**2), here through render on the same
+    # grid, TF, camera and window (0, 1)
+    bm_vol = Volume.synthetic_sphere(FRAME_N).as_torch(dev).requires_grad_()
+    bm_img = render(bm_vol, torch.as_tensor(Gradient.grayscale_ramp()
+                                            .discretize(256), device=dev),
+                    OrbitCamera.from_angles(30.0, 20.0),
+                    RenderSettings(height=FRAME_H, width=FRAME_W,
+                                   step_size=1.8 / FRAME_STEPS),
+                    density_min=0.0, density_max=1.0, method="kernel")
+    bm_want = {"forward": float(bm_img.detach().double().sum()),
+               "grad": float(torch.autograd.grad(torch.mean(bm_img ** 2),
+                                                 bm_vol)[0].double().sum())}
+    bm_got = {"forward": bm_fwd["scaling"][0]["checksum"],
+              "grad": bm_grad["scaling"][0]["checksum"]}
+    del bm_vol, bm_img
+    emit(phase="benchmark", entry="volumetric_renderer_torch.apps.benchmark",
+         argv=bm_argv, gpu=gpu, nvidia_smi=smi, world=dist.get_world_size(),
+         forward=bm_fwd["scaling"], grad=bm_grad["scaling"],
+         launches={"forward": n_fwd, "grad": n_grad},
+         checksum=bm_got, checksum_through_render=bm_want,
+         seconds=time.perf_counter() - t_phase)
+    check([r["devices"] for r in bm_fwd["scaling"]] == [1] and
+          [r["devices"] for r in bm_grad["scaling"]] == [1],
+          f"benchmark sizes {bm_fwd['scaling']}")
+    check(n_fwd["march_fwd"] >= 11 and n_grad["march_fwd"] >= 11 and
+          n_grad["march_bwd"] >= 11, f"benchmark launches {n_fwd} {n_grad}")
+    check(all(np.isfinite(bm_got[k]) and bm_want[k] != 0 and
+              abs(bm_got[k] - bm_want[k]) <= 1e-4 * abs(bm_want[k])
+              for k in bm_got), f"benchmark checksums {bm_got} against "
+          f"render's {bm_want}")
     dist.destroy_process_group()
 
     # -- 4. timing: the bench.py workload ---------------------------------
@@ -846,7 +898,288 @@ def main() -> int:
          step_rays_per_s=FRAME_H * FRAME_W / (step_ms / 1e3))
     del out_p, grads_p
 
+    # -- 6. the apps and harnesses, each on the card through K1 (and K2) --
+    app_launches = {"benchmark_forward": n_fwd, "benchmark_grad": n_grad}
+    ref_settings = RenderSettings(height=FRAME_H, width=FRAME_W,
+                                  step_size=1.8 / FRAME_STEPS)   # ET on
+    cam = OrbitCamera.from_angles(30.0, 20.0)
+    # BASELINE config 2: the 128^3 head phantom at 512x512, 360 steps, ET
+    # on, the bone TF of apps.ablation (alpha 1 by skull density)
+    head2 = models.head_phantom(128)
+    vol2 = head2.as_torch(dev)
+    tf2 = torch.as_tensor(ablation.bone_tf(NTF), device=dev)
+    s2 = RenderSettings(height=512, width=512, step_size=1.8 / 360)
+
+    # -- 6a. sanitize -----------------------------------------------------
+    t_phase = time.perf_counter()
+    (err2, rgba2), _ = counted(lambda: checked_render(vol2, tf2, cam, s2))
+    checked_s = time.perf_counter() - t_phase
+    clean_equal = bool(torch.equal(rgba2, render(vol2, tf2, cam, s2,
+                                                 method="fused")))
+    nan_vol = vol2.clone()
+    nan_vol[64, 64, 64] = float("nan")
+    nan_msg = checked_render(nan_vol, tf2, cam, s2)[0].get()
+    refused = []
+    for method in ("kernel", "auto"):
+        try:
+            checked_render(vol2, tf2, cam, s2, method=method)
+        except ValueError:
+            refused.append(method)
+    _, n_det = counted(lambda: assert_deterministic(
+        lambda: render(vol, tf_ramp, cam, ref_settings, method="kernel"),
+        runs=3))
+    app_launches["sanitize"] = n_det
+    emit(phase="sanitize", entry="volumetric_renderer_torch.utils.sanitize",
+         gpu=gpu, nvidia_smi=smi, workload="config 2: head_phantom(128), 512x512, 360 steps, ET on, "
+         "bone TF; assert_deterministic on the reference frame",
+         clean_error=err2.get(), clean_equals_render_fused=clean_equal,
+         checked_render_s=checked_s, centre_nan_error=nan_msg,
+         kernel_refused=refused, deterministic_runs=3,
+         launches=n_det, seconds=time.perf_counter() - t_phase)
+    check(err2.get() is None and clean_equal, f"checked_render on a clean "
+          f"grid: {err2.get()}, equal {clean_equal}")
+    check(nan_msg is not None and "nan" in nan_msg, "a centre NaN voxel "
+          "was not caught")
+    check(refused == ["kernel", "auto"], f"checked_render refused {refused}")
+    check(n_det["march_fwd"] == 3, f"assert_deterministic launches {n_det}")
+    del nan_vol, rgba2
+
+    # -- 6b. formats: the 256^3 sphere as VTK and as a 16-bit PGM stack ---
+    t_phase = time.perf_counter()
+    sphere256 = Volume.synthetic_sphere(FRAME_N).data
+    quant = np.round(sphere256 * 65535.0).astype(np.uint16)
+    held = {"vtk": sphere256,
+            "pgm": quant.astype(np.float32) / np.float32(65535.0)}
+    read_s, write_s, imported = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vtk = os.path.join(tmp, "sphere.vtk")
+        with open(vtk, "wb") as f:
+            f.write(b"# vtk DataFile Version 3.0\nsphere\nBINARY\n"
+                    b"DATASET STRUCTURED_POINTS\nDIMENSIONS %d %d %d\n"
+                    % ((FRAME_N,) * 3) + b"POINT_DATA %d\n" % FRAME_N ** 3
+                    + b"SCALARS density float 1\nLOOKUP_TABLE default\n")
+            f.write(sphere256.astype(">f4").tobytes())
+        write_s["vtk"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pgms = []
+        for z in range(FRAME_N):
+            pgms.append(os.path.join(tmp, f"slice_{z:03d}.pgm"))
+            with open(pgms[-1], "wb") as f:
+                f.write(b"P5\n%d %d\n65535\n" % (FRAME_N, FRAME_N)
+                        + quant[z].astype(">u2").tobytes())
+        write_s["pgm"] = time.perf_counter() - t0
+        for key, paths in (("vtk", vtk), ("pgm", pgms)):
+            t0 = time.perf_counter()
+            imported[key] = import_volume(paths)
+            read_s[key] = time.perf_counter() - t0
+    formats = {}
+    for key, v in imported.items():
+        same_voxels = bool(np.array_equal(v.data, held[key]))
+        img, n = counted(lambda: render(v.as_torch(dev), tf_ramp, cam,
+                                        ref_settings, method="kernel"))
+        app_launches[f"formats_{key}"] = n
+        ref = render(torch.as_tensor(held[key], device=dev), tf_ramp, cam,
+                     ref_settings, method="kernel")
+        formats[key] = dict(read_s=read_s[key], write_s=write_s[key],
+                            voxels_equal=same_voxels,
+                            frame_equal=bool(torch.equal(img, ref)),
+                            alpha_max=float(img[..., 3].max()), launches=n)
+    emit(phase="formats", entry="volumetric_renderer_torch.data.importer."
+         "import_volume", gpu=gpu, nvidia_smi=smi, volume=f"sphere({FRAME_N}): BINARY big-endian f32 "
+         f"VTK; {FRAME_N} 16-bit PGM slices", frame=f"{FRAME_W}x{FRAME_H}, "
+         f"{FRAME_STEPS} steps, ET on, K1", results=formats,
+         seconds=time.perf_counter() - t_phase)
+    for key, r in formats.items():
+        check(r["voxels_equal"] and r["frame_equal"] and
+              r["launches"]["march_fwd"] == 1 and r["alpha_max"] > 0.9,
+              f"{key} import: {r}")
+    del imported, held, sphere256, quant
+
+    # -- 6c. turntable: 36 PNG frames at 512x512, 180 steps ---------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tt_argv = ["--synthetic", "--frames", "36", "--size", "512x512",
+                   "--steps", "180", "--out",
+                   os.path.join(tmp, "orbit_%d.png"), "--device", "cuda"]
+        with contextlib.redirect_stderr(io.StringIO()):
+            tt, n_tt = counted(lambda: quietly(turntable.main, tt_argv))
+        png_bytes = [os.path.getsize(p) for p in tt["paths"]]
+        frame0 = read_png_image(tt["paths"][0])
+    app_launches["turntable"] = n_tt
+    vol64 = Volume.synthetic_sphere(64)
+    with torch.no_grad():
+        plain0 = composite_over(render(
+            vol64.as_torch(dev), torch.as_tensor(render_cli.load_tf(
+                "preset:ramp", 256), device=dev), OrbitCamera.from_angles(
+                0.0, 20.0), RenderSettings(height=512, width=512,
+                                           step_size=1.8 / 180),
+            method="fused"), (0.11, 0.11, 0.11)).clamp(0.0, 1.0).cpu()
+    plain0 = ((plain0.numpy() * 255).astype(np.uint8) / np.float32(255.0)
+              * np.asarray([0.2126, 0.7152, 0.0722], np.float32)).sum(-1)
+    tt_err = float(np.abs(frame0 - plain0).max())
+    emit(phase="turntable", entry="volumetric_renderer_torch.apps.turntable",
+         argv=tt_argv[:-3] + tt_argv[-2:], gpu=gpu, nvidia_smi=smi,
+         frames=tt["frames"], rays_per_s=tt["rays_per_s"],
+         launches=n_tt, png_bytes_min=min(png_bytes),
+         frame0_vs_plain_max_abs_err=tt_err,
+         seconds=time.perf_counter() - t_phase)
+    check(tt["frames"] == 36 and n_tt["march_fwd"] == 36,
+          f"turntable launches {n_tt}")
+    check(n_tt["texture_fills"] == 1, f"turntable refilled K1's texture "
+          f"after the first frame: {n_tt}")
+    check(tt_err <= 1.0 / 255.0 + 1e-6, f"turntable frame 0 vs plain "
+          f"{tt_err}")
+
+    # -- 6d. viewer: ViewerState driving K1 at 512x512 --------------------
+    t_phase = time.perf_counter()
+    vol128 = Volume.synthetic_sphere(128)
+    state = viewer.ViewerState(
+        viewer.make_frame_renderer(
+            vol128.as_torch(dev), torch.as_tensor(render_cli.load_tf(
+                "preset:ramp", 256), device=dev),
+            RenderSettings(height=512, width=512, step_size=1.8 / 360),
+            density_min=vol128.vmin, density_max=vol128.vmax),
+        OrbitCamera.from_angles(30.0, 20.0))
+
+    def viewer_session():
+        frames, rates = [state.frame()], []
+        state.press(256, -256)
+        for event in (lambda: state.drag(296, -256),
+                      lambda: state.drag(296, -230),
+                      lambda: state.scroll(1), lambda: state.scroll(-2),
+                      state.reset):
+            check(event(), "a viewer event changed nothing")
+            frames.append(state.frame())
+            rates.append(state.last_rays_per_s)
+        state.release()
+        return frames, rates
+
+    (v_frames, v_rates), n_v = counted(viewer_session)
+    app_launches["viewer"] = n_v
+    reset_equal = bool(torch.equal(v_frames[-1], v_frames[0]))
+    distinct = len({float(f.sum()) for f in v_frames[:-1]})
+    emit(phase="viewer", entry="volumetric_renderer_torch.apps.viewer."
+         "ViewerState", volume="sphere(128)", shape=[512, 512], steps=360,
+         gpu=gpu, nvidia_smi=smi, renders=len(v_frames), launches=n_v,
+         last_rays_per_s=state.last_rays_per_s, rays_per_s=v_rates,
+         reset_equals_first=reset_equal, distinct_frames=distinct,
+         seconds=time.perf_counter() - t_phase)
+    check(n_v["march_fwd"] == len(v_frames) == 6, f"viewer launches {n_v}")
+    check(reset_equal and distinct == 5, f"viewer frames: reset equal "
+          f"{reset_equal}, {distinct} distinct")
+
+    # -- 6e. bench: the reference workload, --grad, 512^3 in 4 bands ------
+    t_phase = time.perf_counter()
+    b_fwd, n_bf = counted(lambda: quietly(bench.main, ["--iters", "20"]))
+    b_grad, n_bg = counted(lambda: quietly(bench.main, ["--grad", "--iters",
+                                                        "20"]))
+    b_512, n_b5 = counted(lambda: quietly(bench.main, [
+        "--grid", str(C5_N), "--grad", "--ray-chunks", "4", "--iters",
+        "10"]))
+    app_launches.update(bench_forward=n_bf, bench_grad=n_bg,
+                        bench_512_grad_4_chunks=n_b5)
+    # the 4 bands' accumulated gradients against one band's
+    vol5 = Volume.synthetic_sphere(C5_N).as_torch(dev)
+    origin, dirs = ray_grid(cam.to(dev), FRAME_H, FRAME_W)
+    scal = (torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev),
+            torch.zeros(3, device=dev), torch.ones(3, device=dev))
+    k_marcher = make_marcher("kernel", ref_settings)
+    g1 = bench.band_grads(k_marcher, vol5, tf_ramp, origin + 0.5, dirs, 1,
+                          scal)
+    g4 = bench.band_grads(k_marcher, vol5, tf_ramp, origin + 0.5, dirs, 4,
+                          scal)
+    chunk_err = {name: float((a - b).abs().max())
+                 for name, a, b in zip(("vol", "tf"), g4, g1)}
+    chunk_ok = all(bool(torch.allclose(a, b, atol=BWD_ATOL, rtol=BWD_RTOL))
+                   for a, b in zip(g4, g1))
+    chunk_max = {name: float(b.abs().max()) for name, b in
+                 zip(("vol", "tf"), g1)}
+    del vol5, g1, g4, dirs
+    emit(phase="bench", entry="volumetric_renderer_torch.apps.bench",
+         gpu=gpu, nvidia_smi=smi, forward=b_fwd, grad=b_grad,
+         grad_512_4_chunks=b_512,
+         launches={"forward": n_bf, "grad": n_bg, "grad_512_4_chunks": n_b5},
+         chunks4_vs_1_max_abs_err=chunk_err, chunks1_max_abs=chunk_max,
+         atol=BWD_ATOL, rtol=BWD_RTOL, seconds=time.perf_counter() - t_phase)
+    check(b_fwd["value"] > 0 and b_fwd["vs_baseline"] > 1.0,
+          f"bench forward {b_fwd['value']}, vs oracle {b_fwd['vs_baseline']}")
+    check(all(b["texture_fills_timed"] == 0 for b in (b_fwd, b_grad, b_512)),
+          "K1's texture was refilled inside a timed bench call")
+    check(n_bg["march_bwd"] >= 21 and n_b5["march_bwd"] >= 44,
+          f"bench --grad launches {n_bg} {n_b5}")
+    check(chunk_ok, f"4-band gradients vs 1 band: {chunk_err}")
+
+    # -- 6f. ablation: config 2 (kernel, fused) and the flagship ----------
+    t_phase = time.perf_counter()
+    abl, n_abl = counted(lambda: quietly(ablation.main, [
+        "--methods", "kernel", "fused", "--iters", "10"]))
+    app_launches["ablation"] = n_abl
+    c2 = abl["workloads"]["config2_head_phantom"]
+    # config 2 through K1 against its plain version, bit for bit as K1's
+    # small and chunk cases
+    c2_vs_plain = {}
+    for et in (True, False):
+        s2_et = s2.replace(early_termination=et)
+        got = render(vol2, tf2, cam, s2_et, method="kernel")
+        want = render(vol2, tf2, cam, s2_et, method="fused")
+        c2_vs_plain[f"et{'on' if et else 'off'}"] = dict(
+            equal=bool(torch.equal(got, want)),
+            max_abs_err=float((got - want).abs().max()))
+    del got, want
+    # where config 2's frame time goes: K1 alone (event and device ms)
+    # beside its bound, ET on and off
+    c2_k1 = {}
+    for et in (True, False):
+        kargs, kmarch = kernel_inputs(vol2, tf2, cam,
+                                      s2.replace(early_termination=et))
+        c2_bound, c2_by, c2_work = bound("march_fwd", kargs, kmarch)
+        c2_k1[f"et{'on' if et else 'off'}"] = dict(
+            event_ms=cuda_ms(lambda: march_forward(*kargs, **kmarch), 10),
+            device_ms=device_ms(lambda: march_forward(*kargs, **kmarch), 10,
+                                "march_fwd_kernel")[0],
+            bound_ms=c2_bound, bound_by=c2_by,
+            sampled_steps=c2_work["sampled_steps"])
+    del kargs
+    emit(phase="ablation", entry="volumetric_renderer_torch.apps.ablation",
+         gpu=gpu, nvidia_smi=smi, workloads=abl["workloads"],
+         config2_kernel_vs_fused=c2_vs_plain, config2_k1=c2_k1,
+         launches=n_abl, seconds=time.perf_counter() - t_phase)
+    check(all(c2[f"et_speedup_{m}"] > 0 for m in ("kernel", "fused")) and
+          "et_speedup_kernel" in abl["workloads"]["flagship_sphere"],
+          f"ablation keys {sorted(c2)}")
+    check(n_abl["march_fwd"] >= 4 * 11, f"ablation launches {n_abl}")
+    check(all(r["equal"] for r in c2_vs_plain.values()),
+          f"config 2 K1 vs plain {c2_vs_plain}")
+
+    # -- 6g. scaling: the reference workload, 1 2 4 8 devices -------------
+    t_phase = time.perf_counter()
+    sc, n_sc = counted(lambda: quietly(scaling.main, ["--iters", "5"]))
+    app_launches["scaling"] = n_sc
+    effs = {f"{r['devices']}/{name}": (lay["efficiency"],
+                                       lay.get("efficiency_dispatch_"
+                                               "adjusted"))
+            for r in sc["emulated_strong_scaling"]
+            for name, lay in r["layouts"].items()}
+    exact = all(lay["exact"] for r in sc["emulated_strong_scaling"]
+                for lay in r["layouts"].values())
+    emit(phase="scaling", entry="volumetric_renderer_torch.apps.scaling",
+         gpu=gpu, nvidia_smi=smi, t_full_ms=sc["t_full_ms"],
+         dispatch_floor_ms=sc["dispatch_floor_ms"],
+         dispatch_floor_validation=sc["dispatch_floor_validation"],
+         efficiency_and_adjusted=effs, bands_exact=exact, launches=n_sc,
+         seconds=time.perf_counter() - t_phase)
+    check(exact, "scaling: a layout's bands, unpacked, differ from the "
+          "full frame")
+    check(sc["dispatch_floor_validation"]["n"] == 8 and len(effs) == 13,
+          f"scaling entries {sorted(effs)}")
+    for n in app_launches.values():
+        for k in main_launches:
+            main_launches[k] += n[k]
+
     # -- 5. summary -------------------------------------------------------
+    emit(phase="total", seconds=time.perf_counter() - t_start,
+         app_launches=app_launches)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "march_fwd", "route": "cuda",

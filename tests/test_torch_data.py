@@ -87,12 +87,52 @@ def test_csv_stack_matches_jax(tmp_path):
         timporter.import_volume([str(tmp_path / "bad.csv")])
 
 
-@pytest.mark.parametrize("name", ["v.vtk", "v.pgm", "v.png"])
-def test_unported_formats_raise(tmp_path, name):
-    p = tmp_path / name
-    p.write_bytes(b"\0")
-    with pytest.raises(timporter.VolumeImportError, match="not yet ported"):
-        timporter.import_volume(str(p))
+def _image_file(fmt, path, img):
+    """``img`` (H, W) uint16 written as a 16-bit PGM or PNG."""
+    h, w = img.shape
+    if fmt == "pnm":
+        path.write_bytes(b"P5\n%d %d\n65535\n" % (w, h)
+                         + img.astype(">u2").tobytes())
+        return
+    import struct
+    import zlib
+
+    raw = np.zeros((h, 1 + 2 * w), np.uint8)      # filter 0 per row
+    raw[:, 1:] = np.frombuffer(img.astype(">u2").tobytes(),
+                               np.uint8).reshape(h, 2 * w)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("fmt", ["vtk", "pnm", "png"])
+def test_image_formats_import_as_jax(tmp_path, fmt):
+    """VTK, PNM and PNG volumes through ``import_volume``, by extension and
+    by ``fmt``, equal to the JAX importer's and to the voxels written."""
+    arr = rand_volume(np.random.default_rng(10), "uint16", (3, 4, 5))
+    if fmt == "vtk":
+        p = tmp_path / "v.vtk"
+        p.write_bytes(b"# vtk DataFile Version 3.0\nv\nBINARY\n"
+                      b"DATASET STRUCTURED_POINTS\nDIMENSIONS 5 4 3\n"
+                      b"POINT_DATA 60\nSCALARS d unsigned_short 1\n"
+                      b"LOOKUP_TABLE default\n" + arr.astype(">u2").tobytes())
+        paths, want = str(p), arr.astype(np.float32)
+    else:
+        ext = "pgm" if fmt == "pnm" else "png"
+        files = [tmp_path / f"s{z}.{ext}" for z in range(3)]
+        for path, img in zip(files, arr):
+            _image_file(fmt, path, img)
+        paths = [str(f) for f in files]
+        want = arr.astype(np.float32) / 65535.0
+    got = timporter.import_volume(paths)
+    assert_same_volume(got, jimporter.import_volume(paths))
+    assert_same_volume(timporter.import_volume(paths, fmt=fmt), got)
+    np.testing.assert_array_equal(got.data, want)
     with pytest.raises(timporter.VolumeImportError):
         timporter.import_volume(str(tmp_path / "v.xyz"))
 

@@ -844,3 +844,33 @@ def test_k1_whole_and_chunk_in_turns_without_host_sync_on_cuda(cuda):
             march_forward_plain(*chunk, **kw, own=own))
     for i, x in enumerate(got):
         assert torch.equal(x, want[i % 2])
+
+
+@pytest.mark.cuda
+def test_sanitizer_on_cuda(cuda):
+    """``checked_render`` on a CUDA grid: the plain march with its checks,
+    equal to ``render(method="fused")``; a NaN voxel caught; the kernel
+    refused (``"auto"`` picks it on the card).  K1 is bitwise repeatable
+    (``assert_deterministic`` over 3 launches, the texture kept)."""
+    from volumetric_renderer_torch.utils.sanitize import (
+        assert_deterministic, checked_render,
+    )
+
+    vol = Volume.synthetic_sphere(16).as_torch(cuda)
+    tf = torch.as_tensor(Gradient.grayscale_ramp().discretize(16),
+                         device=cuda)
+    cam = OrbitCamera.from_angles(30.0, 20.0)
+    settings = RenderSettings(height=24, width=24, step_size=1.8 / 24)
+    err, img = checked_render(vol, tf, cam, settings)
+    err.throw()
+    assert torch.equal(img, render(vol, tf, cam, settings, method="fused"))
+    with pytest.raises(ValueError, match="plain PyTorch"):
+        checked_render(vol, tf, cam, settings, method="auto")
+    bad = vol.clone()
+    bad[8, 8, 8] = float("nan")
+    with pytest.raises(FloatingPointError, match="nan"):
+        checked_render(bad, tf, cam, settings)[0].throw()
+    before = march_forward.launches
+    assert_deterministic(lambda: render(vol, tf, cam, settings,
+                                        method="kernel"), runs=3)
+    assert march_forward.launches == before + 3

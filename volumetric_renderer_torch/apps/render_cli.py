@@ -58,6 +58,19 @@ def load_tf(spec: str, resolution: int):
     return g.discretize(resolution)
 
 
+def open_device(spec: str):
+    """The torch device ``spec`` names (``cuda``, ``cuda:N`` or ``cpu``);
+    ``SystemExit`` for a CUDA device where none is available.  The apps
+    take ``--device`` (default ``cuda``) and call this."""
+    import torch
+
+    device = torch.device(spec)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {spec}: no CUDA device is available "
+                         "(use --device cpu)")
+    return device
+
+
 def write_png(path: str, rgb: np.ndarray) -> None:
     """Write an ``(H, W, 3)`` uint8 image as an 8-bit RGB PNG (stdlib only)."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
@@ -127,10 +140,7 @@ def main(argv=None):
     from volumetric_renderer_torch.scene.camera import OrbitCamera
     from volumetric_renderer_torch.utils.config import RenderSettings
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is "
-                         "available (use --device cpu)")
+    device = open_device(args.device)
 
     w, h = (int(v) for v in args.size.split("x"))
     if args.synthetic:

@@ -74,21 +74,12 @@ import subprocess
 import numpy as np
 import torch
 
+from volumetric_renderer_torch.utils.metrics import time_calls
+
 
 def cuda_ms(fn, iters: int) -> float:
     """Median device time of ``fn`` over ``iters`` runs after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(time_calls(fn, iters, "cuda"))
 
 
 def device_ms(fn, iters: int, kernel: str):

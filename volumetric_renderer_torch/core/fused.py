@@ -61,7 +61,8 @@ def _active(pos, hit, smin, smax, tr, vol_shape, own, early_termination,
 
 def march_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                    num_steps: int, step_size: float, early_termination: bool,
-                   termination_eps: float, own=None) -> torch.Tensor:
+                   termination_eps: float, own=None,
+                   check=None) -> torch.Tensor:
     """The forward march over prepared rays; RGBA ``dirs.shape[:-1] + (4,)``.
 
     Every step runs for every ray (masked steps add exactly 0), in the
@@ -71,6 +72,8 @@ def march_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
     ``own = (axis, a_start, body, n_total)`` marches one depth chunk of a
     larger volume and composites only the samples it owns
     (``core.sampling.check_own``); T starts at 1 in every chunk.
+    ``check(stage, k, x)``, where given, sees every value the loop makes
+    (``utils.sanitize.checked_render`` tests them for NaN and Inf).
     """
     own = check_own(own, tuple(vol.shape))
     amax = 1.0 - ALPHA_EPS
@@ -85,12 +88,19 @@ def march_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
 
         density = trilinear_sample(vol, pos, own)
         t = (density - dmin) * inv_window
+        if check is not None:
+            for stage, x in (("pos", pos), ("density", density), ("t", t)):
+                check(stage, k, x)
         t = torch.where(active, t, 0.0)  # NaN-voxel containment
         rgba = sample_tf(tf, t)
         a = torch.clamp(rgba[..., 3], max=amax)
         a = torch.where(active, a, 0.0)
         rgb = rgb + (tr * a)[..., None] * rgba[..., :3]
         tr = tr * (1.0 - a)
+        if check is not None:
+            for stage, x in (("tf", rgba), ("rgb", rgb),
+                             ("transmittance", tr)):
+                check(stage, k, x)
     alpha = torch.where(hit, 1.0 - tr, 0.0)
     return torch.cat([rgb, alpha[..., None]], dim=-1)
 

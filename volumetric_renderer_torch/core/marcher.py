@@ -111,6 +111,7 @@ def march_rays(
     step_size: float,
     early_termination: bool = False,
     termination_eps: float = 1.0 / 255.0,
+    check=None,
 ) -> torch.Tensor:
     """March a batch of rays; returns RGBA of shape ``dirs.shape[:-1] + (4,)``.
 
@@ -118,10 +119,14 @@ def march_rays(
     ``dirs`` are unit world directions (translation-invariant, so identical
     in texture space).  RGB is the accumulated front-to-back sum; alpha is
     opacity ``1 - T``.  Pixels whose rays miss the cube are ``(0, 0, 0, 0)``
-    (no fragment in the reference).
+    (no fragment in the reference).  ``check(stage, k, x)``, where given,
+    sees every value the march makes, as in ``core.fused.march_prepared``.
     """
     pos0, hit, inv_window = prepare_rays(origin, dirs, density_min,
                                          density_max)
+    if check is not None:
+        check("entry", -1, pos0)
+        check("window", -1, inv_window)
     # dtype follows the rays so the oracle doubles as a float64 ground
     # truth for numerics studies (f64 inputs).
     rgb = torch.zeros(dirs.shape[:-1] + (3,), dtype=dirs.dtype,
@@ -141,6 +146,9 @@ def march_rays(
 
         density = trilinear_sample(vol, pos)
         t = (density - density_min) * inv_window
+        if check is not None:
+            for stage, x in (("pos", pos), ("density", density), ("t", t)):
+                check(stage, k, x)
         # The fetch is unconditional, so zero t for masked lanes to keep
         # non-finite voxel values from leaking through `0 * NaN`.
         t = torch.where(active, t, 0.0)
@@ -148,6 +156,10 @@ def march_rays(
         a = torch.where(active, rgba[..., 3], 0.0)
         rgb = rgb + (trans * a)[..., None] * rgba[..., :3]
         trans = trans * (1.0 - a)
+        if check is not None:
+            for stage, x in (("tf", rgba), ("rgb", rgb),
+                             ("transmittance", trans)):
+                check(stage, k, x)
 
     alpha = torch.where(hit, 1.0 - trans, 0.0)
     return torch.cat([rgb, alpha[..., None]], dim=-1)

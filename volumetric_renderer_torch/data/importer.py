@@ -4,11 +4,6 @@ Equivalent of the reference's ``Importer`` (``src/data/importer.{h,cpp}``)
 minus the native file dialogs: format is chosen by extension or explicitly,
 parse errors raise ``VolumeImportError`` (the reference surfaces them in a
 modal error popup, ``importer.cpp:47-49``).
-
-NRRD and CSV stacks are supported.  The VTK, PNM and PNG readers of the JAX
-package (``volumetric_renderer_tpu/data/formats.py``) are not ported yet:
-those formats are still recognised by extension and raise
-``VolumeImportError``.
 """
 
 from __future__ import annotations
@@ -23,15 +18,15 @@ class VolumeImportError(RuntimeError):
     """Raised when a dataset cannot be parsed (UI error-popup equivalent)."""
 
 
-_NOT_PORTED = ("vtk", "pnm", "png")
-
-
 def import_volume(path_or_paths, fmt: str | None = None) -> Volume:
-    """Import a volume: NRRD (single file) or CSV slice stack (list).
+    """Import a volume: NRRD (single file), CSV slice stack (list), VTK
+    structured points (single file), or PNM/PNG image slice stacks.
 
-    ``fmt``: ``"nrrd"`` | ``"csv"`` | None (infer from extension, mirroring
-    the enum dispatch in ``importer.cpp:20-40``).  ``"vtk"``, ``"pnm"`` and
-    ``"png"`` are recognised but raise ``VolumeImportError``.
+    ``fmt``: ``"nrrd"`` | ``"csv"`` | ``"vtk"`` | ``"pnm"`` | ``"png"`` |
+    None (infer from extension, mirroring the enum dispatch in
+    ``importer.cpp:20-40``; the non-NRRD image formats are NrrdIO
+    capabilities — ``extern/NrrdIO/formatPNM.c``, ``formatPNG.c``,
+    ``formatVTK.c`` — unused by the reference app).
     """
     if isinstance(path_or_paths, (list, tuple)):
         paths: Sequence[str] = [os.fspath(p) for p in path_or_paths]
@@ -55,8 +50,6 @@ def import_volume(path_or_paths, fmt: str | None = None) -> Volume:
         else:
             raise VolumeImportError(f"cannot infer format from {paths[0]!r}")
 
-    if fmt in _NOT_PORTED:
-        raise VolumeImportError(f"{fmt} import is not yet ported")
     try:
         if fmt == "nrrd":
             if single is None and len(paths) != 1:
@@ -68,6 +61,20 @@ def import_volume(path_or_paths, fmt: str | None = None) -> Volume:
             from volumetric_renderer_torch.data.csv_stack import read_csv_stack
 
             return read_csv_stack(paths)
+        if fmt == "vtk":
+            if single is None and len(paths) != 1:
+                raise VolumeImportError("VTK import takes a single file")
+            from volumetric_renderer_torch.data.formats import read_vtk
+
+            return read_vtk(paths[0])
+        if fmt == "pnm":
+            from volumetric_renderer_torch.data.formats import read_pnm
+
+            return read_pnm(paths)
+        if fmt == "png":
+            from volumetric_renderer_torch.data.formats import read_png
+
+            return read_png(paths)
     except VolumeImportError:
         raise
     except Exception as e:  # parser failure -> import error (importer.cpp:47-49)

@@ -255,6 +255,7 @@ def _grid_texture(lib, dev_index: int, vol, stream) -> _GridTexture:
                                                stream),
                     lib, "march_fwd", "copying the grid into its texture")
         entry.source = source
+        march_forward.texture_fills += 1
     return entry
 
 
@@ -404,6 +405,9 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
 #: reads them back to show that its main path went through the kernels.
 march_forward.launches = 0
 march_backward.launches = 0
+#: Copies of a grid into K1's texture (``_grid_texture``) since the count
+#: was last reset: a timed loop over one unchanged grid should make none.
+march_forward.texture_fills = 0
 
 
 def make_kernel_marcher(num_steps: int, step_size: float,

@@ -8,6 +8,8 @@ counter shown in the status bar (``src/application.cpp:102-122``,
   rays/s (the north-star metric) instead of frames/s;
 * :class:`PhaseTimers` — wall-clock spans per phase (render targets /
   train step), aggregated into a structured report;
+* :func:`time_calls` and :func:`spread` — per-call times (CUDA events on a
+  card) and their median with min, quartiles and max, for the harnesses;
 * :func:`trace` — a ``torch.profiler`` trace of CPU and CUDA activity,
   written as a Chrome trace for deep dives.
 
@@ -26,6 +28,7 @@ import os
 import time
 from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
 log = logging.getLogger("volumetric_renderer_torch")
@@ -59,6 +62,45 @@ class ThroughputMeter:
         dt = sum(s[0] for s in self._samples)
         n = sum(s[1] for s in self._samples)
         return n / dt if dt > 0 else None
+
+
+def time_calls(fn, iters: int, device, warmup: int = 1) -> list:
+    """Milliseconds of each of ``iters`` calls of ``fn``, after ``warmup``
+    calls.  On a CUDA device each call is timed with CUDA events around it
+    on the current stream (the host's time to queue it included where the
+    device waits for the host), else with the host's clock."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    times = []
+    for _ in range(iters):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def spread(times) -> Dict[str, float]:
+    """``{"median", "min", "q1", "q3", "max", "n"}`` of a list of times."""
+    q1, med, q3 = (float(v) for v in np.percentile(times, [25, 50, 75]))
+    return {"median": med, "min": float(min(times)), "q1": q1, "q3": q3,
+            "max": float(max(times)), "n": len(times)}
 
 
 class PhaseTimers:
