@@ -16,8 +16,11 @@ chunks (the ownership range ``own``) against their plain versions, a 512^3
 volume folded from 4 depth chunks against the whole-volume frame and its
 gradients, and, in a one-rank NCCL process group, the pixel-sharded
 config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
---parallel pixels|depth`` at that size.  It also holds K2 against its
-plain version on one config-4 view, launches both kernels under
+--parallel pixels|depth`` at that size.  The pixel-sharded train step
+marches all its views at once: config 4 must make one K1 and one K2 launch
+a step, and one step of it is held against a loop of one march per view
+built here.  It also holds K1 and K2 against their plain versions on one
+config-4 view and on the step's stacked rays, launches both kernels under
 ``torch.cuda.set_sync_debug_mode("error")``, and computes each kernel's
 bound from the steps its inputs make it sample.  Each phase prints one JSON
 object per line; the line before the last lists the kernels (times, bounds,
@@ -173,8 +176,8 @@ def main() -> int:
     from volumetric_renderer_torch.data.volume import Volume
     from volumetric_renderer_torch.kernels import _build
     from volumetric_renderer_torch.kernels.march import (
-        load_library, march_backward, march_backward_plain, march_forward,
-        march_forward_plain, make_kernel_marcher,
+        _one_wave, load_library, march_backward, march_backward_plain,
+        march_forward, march_forward_plain, make_kernel_marcher,
     )
     from volumetric_renderer_torch.parallel.depth import (
         chunk_of, fold_partials,
@@ -182,11 +185,12 @@ def main() -> int:
     from volumetric_renderer_torch.parallel.distributed import (
         init_distributed,
     )
+    from volumetric_renderer_torch.parallel.mesh import make_layout
     from volumetric_renderer_torch.parallel.render import (
         make_sharded_renderer,
     )
     from volumetric_renderer_torch.parallel.train import (
-        init_state, make_train_step,
+        init_state, make_train_step, stack_cameras,
     )
     from volumetric_renderer_torch.render.api import (
         composite_over, make_marcher, render,
@@ -480,16 +484,16 @@ def main() -> int:
     del vol, plain
 
     # -- 3b. training main path: apps.optimize at configs 3 and 4 ---------
-    def optimize_run(argv, min_fwd, min_bwd):
-        march_forward.launches = march_backward.launches = 0
+    def optimize_run(argv, want_fwd, want_bwd, exact=True):
+        """``apps.optimize.main(argv)``; its K1 and K2 launches must be
+        ``want_fwd`` and ``want_bwd`` (at least those, where not
+        ``exact``)."""
         log = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(log), \
                 contextlib.redirect_stdout(sys.stderr):
-            res = optimize.main(argv)
+            res, launches = counted(lambda: optimize.main(argv))
         wall_s = time.perf_counter() - t0
-        launches = {"march_fwd": march_forward.launches,
-                    "march_bwd": march_backward.launches}
         print(log.getvalue(), end="", file=sys.stderr, flush=True)
         losses = res["losses"]
         emit(phase="train_main_path",
@@ -500,16 +504,20 @@ def main() -> int:
              wall_s=wall_s, method=res["method"], launches=launches)
         check(res["method"] == "kernel", f"method {res['method']}")
         check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-        check(launches["march_fwd"] >= min_fwd and
-              launches["march_bwd"] >= min_bwd,
-              f"launches {launches} < ({min_fwd}, {min_bwd})")
+        got = (launches["march_fwd"], launches["march_bwd"])
+        check(got == (want_fwd, want_bwd) if exact else
+              got[0] >= want_fwd and got[1] >= want_bwd,
+              f"launches {launches}, want {'' if exact else '>= '}"
+              f"({want_fwd}, {want_bwd})")
         return res, launches
 
     def per_step(n, views, res):
-        """Launches per training step: all but the target renders."""
+        """Launches and K1 texture copies per training step: all but those
+        of the target renders (one launch a view, one copy of the truth)."""
         steps = len(res["losses"])
         return {"march_fwd": (n["march_fwd"] - views) / steps,
-                "march_bwd": n["march_bwd"] / steps}
+                "march_bwd": n["march_bwd"] / steps,
+                "texture_fills": (n["texture_fills"] - 1) / steps}
 
     main_launches = {"march_fwd": launches, "march_bwd": 0}
     steps3, views4 = 5, 32
@@ -528,21 +536,98 @@ def main() -> int:
         inv = ["invert", "--grid", str(FRAME_N), "--size", "256x256",
                "--march-steps", str(FRAME_STEPS), "--views", str(views4),
                "--ckpt-dir", ck, "--ckpt-every", "2", "--device", "cuda"]
-        first, n = optimize_run(inv + ["--steps-opt", "4"],
-                                views4 * 5, views4 * 4)
+        # the target renders (one K1 launch a view), then one K1 and one
+        # K2 launch a step for all 32 views
+        first, n = optimize_run(inv + ["--steps-opt", "4"], views4 + 4, 4)
         launches_per_step["config4"] = per_step(n, views4, first)
         for k in main_launches:
             main_launches[k] += n[k]
         check(first["losses"][-1] < first["losses"][0],
               f"config 4 loss did not fall: {first['losses']}")
+        check({k: launches_per_step["config4"][k]
+               for k in ("march_fwd", "march_bwd")} ==
+              {"march_fwd": 1, "march_bwd": 1},
+              f"config 4 per step {launches_per_step['config4']}")
+        # the grid changes once per Adam step: one copy into K1's texture
+        check(launches_per_step["config4"]["texture_fills"] == 1,
+              f"config 4 texture copies {launches_per_step['config4']}")
         resumed, n = optimize_run(inv + ["--steps-opt", "6", "--resume"],
-                                  views4 * 3, views4 * 2)
+                                  views4 + 2, 2)
         for k in main_launches:
             main_launches[k] += n[k]
         check(resumed["start"] == 4, f"resumed at step {resumed['start']}")
         check(resumed["losses"][-1] < first["losses"][0],
               f"resumed loss {resumed['losses']} not below the first "
               f"{first['losses'][0]}")
+
+    # -- 3b'. one config-4 step both ways: all views in one march (the
+    # train step) against a loop of one march per view built here
+    t_phase = time.perf_counter()
+    s4 = RenderSettings(height=256, width=256, step_size=1.8 / FRAME_STEPS,
+                        early_termination=False)        # as optimize.py
+    vol = Volume.synthetic_sphere(FRAME_N).as_torch(dev)
+    cams4 = [OrbitCamera.from_angles(float(a), 20.0) for a in
+             np.linspace(0.0, 360.0, views4, endpoint=False)]
+    window4 = dict(dmin=vol.min(), dmax=vol.max(),
+                   smin=torch.zeros(3, device=dev),
+                   smax=torch.ones(3, device=dev))
+    with torch.no_grad():
+        targets4 = torch.stack([render(vol, tf_ramp, c, s4, method="kernel")
+                                for c in cams4])
+    init4 = {"vol": torch.full_like(vol, 0.3), "tf": tf_ramp * 0.5}
+    fixed4 = dict(window4, vol=vol, tf=tf_ramp)
+    step4 = make_train_step(s4, optimize_vol=True, optimize_tf=True,
+                            row_layout="tile-cyclic")
+
+    def batched4():
+        state = init_state(init4, lambda p: torch.optim.SGD(p, lr=0.0))
+        state, loss = step4(state, fixed4, cams4, targets4)
+        return float(loss), [state.params[k].grad for k in ("vol", "tf")]
+
+    per_view4 = make_sharded_renderer(None, s4, row_layout="tile-cyclic",
+                                      permuted_output=True,
+                                      reduce_grads=False)
+    _, _, pack4, _, valid4 = make_layout("tile-cyclic", 256, 256, 1)
+    valid4 = valid4.to(dev)[..., None]
+
+    def loop4():
+        xs = [init4[k].clone().requires_grad_(True) for k in ("vol", "tf")]
+        total = torch.zeros((), device=dev)
+        for i, c in enumerate(cams4):
+            img = per_view4(*xs, c, *window4.values())
+            loss_v = torch.sum((img - pack4(targets4[i])) ** 2 * valid4) \
+                / float(256 * 256 * 4)
+            (loss_v / views4).backward()
+            total = total + loss_v.detach()
+        return float(total / views4), [x.grad for x in xs]
+
+    (loss_b, grads_b), n_b = counted(batched4)
+    (loss_l, grads_l), n_l = counted(loop4)
+    errs4 = {"loss": abs(loss_b - loss_l)}
+    errs4.update({k: float((a - b).abs().max()) for k, a, b in
+                  zip(("vol", "tf"), grads_b, grads_l)})
+    ok4 = abs(loss_b - loss_l) <= 1e-5 * abs(loss_l) and all(
+        bool(torch.isfinite(a).all()) and bool(torch.allclose(
+            a, b, atol=BWD_ATOL, rtol=BWD_RTOL))
+        for a, b in zip(grads_b, grads_l))
+    step4_ms = cuda_ms(batched4, 5)
+    loop4_ms = cuda_ms(loop4, 3)
+    emit(phase="config4_step_both_ways", entry="parallel.train."
+         "make_train_step", views=views4, shape=[256, 256],
+         steps=FRAME_STEPS, row_layout="tile-cyclic", gpu=gpu,
+         nvidia_smi=smi, loss=loss_b, loss_per_view_loop=loss_l,
+         max_abs_err=errs4,
+         max_abs={k: float(b.abs().max()) for k, b in
+                  zip(("vol", "tf"), grads_l)},
+         atol=BWD_ATOL, rtol=BWD_RTOL, note=BWD_NOTE, launches=n_b,
+         launches_per_view_loop=n_l, step_ms=step4_ms,
+         per_view_loop_ms=loop4_ms, seconds=time.perf_counter() - t_phase)
+    check(ok4, f"config-4 step, one march vs the per-view loop: {errs4}")
+    check((n_b["march_fwd"], n_b["march_bwd"]) == (1, 1) and
+          (n_l["march_fwd"], n_l["march_bwd"]) == (views4, views4),
+          f"config-4 step launches {n_b}, per-view loop {n_l}")
+    bwd_small_err = max(bwd_small_err, errs4["vol"], errs4["tf"])
+    del targets4, init4, fixed4, grads_b, grads_l
 
     # -- 3c. depth fold at config-5 size: 4 chunks along z, one device ---
     vol5 = Volume.synthetic_sphere(C5_N).as_torch(dev)
@@ -667,7 +752,7 @@ def main() -> int:
           "--march-steps", str(FRAME_STEPS), "--views", "2", "--device",
           "cuda"]
     res, n = optimize_run(c5 + ["--parallel", "pixels", "--steps-opt", "3"],
-                          2 + 3 * 2, 3 * 2)
+                          2 + 3, 3)
     check(res["losses"][-1] < res["losses"][0],
           f"config 5 pixels: loss did not fall: {res['losses']}")
     c5_pixels = res
@@ -676,11 +761,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ck:
         dep = c5 + ["--parallel", "depth", "--ckpt-dir", ck, "--ckpt-every",
                     "2"]
-        first, n = optimize_run(dep + ["--steps-opt", "2"], 2 + 2 * 2, 2 * 2)
+        # the depth step keeps one march per view
+        first, n = optimize_run(dep + ["--steps-opt", "2"], 2 + 2 * 2, 2 * 2,
+                                exact=False)
         for k in main_launches:
             main_launches[k] += n[k]
         resumed, n = optimize_run(dep + ["--steps-opt", "3", "--resume"],
-                                  2 + 2, 2)
+                                  2 + 2, 2, exact=False)
         for k in main_launches:
             main_launches[k] += n[k]
     check(first["losses"][-1] < first["losses"][0] and
@@ -817,6 +904,49 @@ def main() -> int:
          note=BWD_NOTE)
     check(ok4, f"config-4 view: K2 vs plain {errs4}")
     bwd_small_err = max(bwd_small_err, *errs4.values())
+    # K1 and K2 at the config-4 step's size: the 32 views' tile-cyclic
+    # blocks stacked along rows, as the train step marches them
+    origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+        vol, stack_cameras(cams4), s4)
+    dirs = pack4(dirs.permute(1, 2, 0, 3)).permute(2, 0, 1, 3)
+    rows4, cols4 = dirs.shape[1:3]
+    origin = origin.reshape(-1, 1, 1, 3).expand(-1, rows4, 1, 3)
+    dirs = dirs.reshape(-1, cols4, 3).contiguous()
+    pos0, hit, inv_w = prepare_rays(origin.reshape(-1, 1, 3), dirs, dmin,
+                                    dmax)
+    args4s = (vol, tf_ramp, pos0, dirs, hit, dmin, inv_w, smin, smax)
+    g4s = cotangent(tuple(hit.shape) + (4,), 9)
+    out4s = march_forward(*args4s, **march4)
+    k1_stacked_equal = bool(torch.equal(
+        out4s, march_forward_plain(*args4s, **march4)))
+    errs4s, ok4s = max_errs(march_backward(*args4s, out4s, g4s, **march4),
+                            march_backward_plain(*args4s, out4s, g4s,
+                                                 **march4))
+    blocks4s = -(-hit.shape[0] // 16) * -(-hit.shape[1] // 16)
+    stacked4 = dict(
+        shape=list(hit.shape), blocks=blocks4s,
+        k2_one_wave_blocks=_one_wave(load_library("march_bwd"),
+                                     torch.cuda.current_device(), NTF),
+        k1_ms=cuda_ms(lambda: march_forward(*args4s, **march4), 5),
+        k1_device_ms=device_ms(lambda: march_forward(*args4s, **march4), 5,
+                               "march_fwd_kernel")[0],
+        k2_ms=cuda_ms(lambda: march_backward(*args4s, out4s, g4s, **march4),
+                      5),
+        k2_device_ms=device_ms(
+            lambda: march_backward(*args4s, out4s, g4s, **march4), 5,
+            "march_bwd_kernel")[0],
+        bounds={k: bound(k, args4s, march4)[:2]
+                for k in ("march_fwd", "march_bwd")},
+        k1_bitwise_equal_plain=k1_stacked_equal, k2_max_abs_err=errs4s)
+    stacked4["k2_shared_table"] = \
+        stacked4["blocks"] > stacked4["k2_one_wave_blocks"]
+    emit(phase="kernel_bwd_vs_plain", case="config4_stacked",
+         shape=list(hit.shape), steps=FRAME_STEPS, max_abs_err=errs4s,
+         atol=BWD_ATOL, rtol=BWD_RTOL, note=BWD_NOTE)
+    check(k1_stacked_equal, "config-4 stacked rays: K1 differs from plain")
+    check(ok4s, f"config-4 stacked rays: K2 vs plain {errs4s}")
+    bwd_small_err = max(bwd_small_err, *errs4s.values())
+    del args4s, out4s, g4s, pos0, dirs, hit
 
     # both kernels at config 3 with every input on the card: a launch that
     # waited on the device would raise under sync-debug mode "error"
@@ -890,6 +1020,7 @@ def main() -> int:
                            k1_device_ms=k1_view4_device_ms,
                            k2_ms=k2_view4_ms,
                            bounds=view4_bounds),
+         config4_stacked=stacked4,
          kernel_fwd_bwd_step_ms=step_ms,
          rest_of_step_ms=step_ms - k1_ms - k2_ms, adam_256cubed_ms=adam_ms,
          plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
@@ -1191,7 +1322,9 @@ def main() -> int:
          "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": None,
          "launches_per_step": {k: v["march_fwd"] for k, v in
-                               launches_per_step.items()}},
+                               launches_per_step.items()},
+         "config4_step": {k: stacked4[k] for k in ("k1_ms", "k1_device_ms")}
+         | {"bound_ms": stacked4["bounds"]["march_fwd"][0]}},
         {"name": "march_bwd", "route": "cuda",
          "source": KERNELS["march_bwd"][0],
          "replaces": KERNELS["march_bwd"][1],
@@ -1201,7 +1334,10 @@ def main() -> int:
          "plain_steps": plain_march["num_steps"], "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None,
          "launches_per_step": {k: v["march_bwd"] for k, v in
-                               launches_per_step.items()}},
+                               launches_per_step.items()},
+         "config4_step": {k: stacked4[k] for k in ("k2_ms", "k2_device_ms",
+                                                   "k2_shared_table")}
+         | {"bound_ms": stacked4["bounds"]["march_bwd"][0]}},
     ]}), flush=True)
     # the devices this run used: those it allocated memory on
     used = sum(torch.cuda.max_memory_allocated(i) > 0

@@ -119,6 +119,58 @@ def test_ray_grid_matches_jax_and_reference(yaw, pitch, radius):
     np.testing.assert_allclose(n(dirs), ref_dirs, atol=RAY_ATOL)
 
 
+@pytest.mark.parametrize("views", [1, 3])
+def test_batched_ray_grid_matches_jax_per_view(views):
+    """A camera of V views (leading axis) gives each view's rays: within
+    1e-5 of the JAX package's ``ray_grid`` of that view, and, with its
+    pose and matrices, bit for bit the port's own one-camera ones."""
+    h, w = 24, 20
+    poses = POSES[:views]
+    cams = [tcam.OrbitCamera.from_angles(*p) for p in poses]
+    batch = tcam.OrbitCamera(*(torch.stack([getattr(c, f) for c in cams])
+                               for f in ("center", "orientation", "radius")))
+    origin, dirs = tcam.ray_grid(batch, h, w)
+    assert origin.shape == (views, 3) and dirs.shape == (views, h, w, 3)
+    positions, views_m = batch.position(), batch.view_matrix()
+    for i, (cam, pose) in enumerate(zip(cams, poses)):
+        jorigin, jdirs = jcam.ray_grid(jcam.OrbitCamera.from_angles(*pose),
+                                       h, w)
+        np.testing.assert_allclose(n(origin[i]), np.asarray(jorigin),
+                                   atol=ATOL)
+        np.testing.assert_allclose(n(dirs[i]), np.asarray(jdirs),
+                                   atol=RAY_ATOL)
+        one_origin, one_dirs = tcam.ray_grid(cam, h, w)
+        assert torch.equal(origin[i], one_origin)
+        assert torch.equal(dirs[i], one_dirs)
+        assert torch.equal(positions[i], cam.position())
+        assert torch.equal(views_m[i], cam.view_matrix())
+
+
+@pytest.mark.parametrize("yaw,pitch,radius", POSES)
+def test_one_camera_ray_grid_keeps_its_bits(yaw, pitch, radius):
+    """One camera's rays are, bit for bit, the single-camera formula: the
+    pixel centres unprojected at two depths through the inverse of
+    ``projection_matrix`` column by column, subtracted and normalised; the
+    origin is the orbit position."""
+    h, w = 30, 36
+    cam = tcam.OrbitCamera.from_angles(yaw, pitch, radius)
+    m_inv = torch.linalg.inv(tcam.projection_matrix(cam, w / h))
+    ys = 2.0 * (torch.arange(h, dtype=torch.float32) + 0.5) / h - 1.0
+    xs = 2.0 * (torch.arange(w, dtype=torch.float32) + 0.5) / w - 1.0
+    ny, nx = torch.meshgrid(ys, xs, indexing="ij")
+    p = [nx[..., None] * m_inv[:, 0] + ny[..., None] * m_inv[:, 1]
+         + (z * m_inv[:, 2] + m_inv[:, 3]) for z in (0.25, 0.75)]
+    d = p[1][..., :3] / p[1][..., 3:4] - p[0][..., :3] / p[0][..., 3:4]
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    origin, dirs = tcam.ray_grid(cam, h, w)
+    assert dirs.shape == (h, w, 3) and origin.shape == (3,)
+    assert torch.equal(dirs, d)
+    q, v = cam.orientation, torch.tensor([0.0, -1.0, 0.0])
+    uv = torch.linalg.cross(q[1:], v)           # Rodrigues, as camera.cpp
+    forward = v + 2.0 * (q[0] * uv + torch.linalg.cross(q[1:], uv))
+    assert torch.equal(origin, cam.center - cam.radius * forward)
+
+
 def test_ray_grid_wide_fov_and_reference_arrays():
     """A camera carried across with ``from_reference_arrays`` gives the
     port's own rays; FoV 90 close to the cube as in the kernel's cases."""

@@ -442,6 +442,27 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
                                    rtol=BWD_RTOL, err_msg=what)
 
 
+def test_k2_occupancy_is_queried_once_per_device_and_tf_size(cpu_kernels,
+                                                             monkeypatch):
+    """``_one_wave`` asks the library for K2's occupancy once per ``(device,
+    TF texels)`` and keeps the answer: two launches make one query."""
+    lib = cpu_kernels["march_bwd"]
+    query, queries = lib.march_bwd_occupancy, []
+
+    def counted(*args):
+        queries.append(args[:2])
+        return query(*args)
+
+    monkeypatch.setattr(lib, "march_bwd_occupancy", counted)
+    monkeypatch.setattr(march, "_waves", {})
+    first = march._one_wave(lib, 0, NTF)
+    assert first > 0 and march._one_wave(lib, 0, NTF) == first
+    assert queries == [(0, NTF)]
+    march._one_wave(lib, 0, 2 * NTF)
+    march._one_wave(lib, 0, 2 * NTF)
+    assert queries == [(0, NTF), (0, 2 * NTF)]
+
+
 def owned_steps_proxy(pos0, dirs, own, num_steps: int, step_size: float):
     """Each ray's steps ``[k_begin, k_end)`` on the depth chunk ``own``, as
     ``csrc/march_common.cuh:owned_steps`` computes them, in float32 NumPy.

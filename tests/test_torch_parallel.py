@@ -18,6 +18,9 @@ Tolerances:
   sums over rays taken per rank, then across ranks);
 * depth-sharded forward, gradients and steps: ``5e-4 * max|g|``
   (``tests/test_depth.py``: the over-fold reassociates every composite);
+* all views in one march against one march per view: the frames bit for
+  bit (the same operations on each ray); loss rtol 1e-5, gradients atol
+  1e-4 / rtol 1e-5 (the scatters add the same terms in another order);
 * every rank's parameters after a step: identical.
 """
 
@@ -94,6 +97,66 @@ def fixed_of(vol, tf):
     return dict(vol=vol, tf=tf, dmin=dmin, dmax=dmax, smin=smin, smax=smax)
 
 
+def batched_step(settings, layout, vol, tf, fixed, cams, targets):
+    """``(loss, [vol_g, tf_g])`` of one step of ``make_train_step`` (every
+    view in one march), read after an SGD step of rate 0."""
+    from volumetric_renderer_torch.parallel.train import (
+        init_state, make_train_step,
+    )
+
+    step = make_train_step(settings, optimize_vol=True, optimize_tf=True,
+                           row_layout=layout)
+    state = init_state({"vol": vol, "tf": tf},
+                       lambda p: torch.optim.SGD(p, lr=0.0))
+    state, loss = step(state, fixed, cams, targets)
+    return float(loss), [state.params[k].grad for k in ("vol", "tf")]
+
+
+def per_view_step(settings, layout, vol, tf, fixed, cams, targets):
+    """The same loss and gradients by a loop over the views: the one-camera
+    sharded renderer per view, each view's loss differentiated alone, the
+    sums taken across the ranks once after the loop."""
+    import torch.distributed as dist
+
+    from volumetric_renderer_torch.parallel.mesh import (
+        group_info, make_layout,
+    )
+    from volumetric_renderer_torch.parallel.render import (
+        all_reduce_grads, make_sharded_renderer,
+    )
+
+    _, rank, world = group_info()
+    h, w = settings.height, settings.width
+    f = make_sharded_renderer(None, settings, row_layout=layout,
+                              permuted_output=True, reduce_grads=False)
+    gh, _, pack, _, valid = make_layout(layout, h, w, world)
+    rows = gh // world
+    mask = valid[rank * rows:(rank + 1) * rows, :, None]
+    xs = [x.detach().clone().requires_grad_(True) for x in (vol, tf)]
+    total = torch.zeros(())
+    for i, cam in enumerate(cams):
+        img = f(*xs, cam, fixed["dmin"], fixed["dmax"], fixed["smin"],
+                fixed["smax"])
+        target = pack(targets[i])[rank * rows:(rank + 1) * rows]
+        loss_v = torch.sum((img - target) ** 2 * mask) / float(h * w * 4)
+        (loss_v / len(cams)).backward()
+        total = total + loss_v.detach()
+    all_reduce_grads(xs)
+    if world > 1:
+        dist.all_reduce(total)
+    return float(total / len(cams)), [x.grad for x in xs]
+
+
+def assert_steps_equal(got, want):
+    """Loss and gradients of the batched step against the per-view loop:
+    rtol 1e-5 on the loss, atol 1e-4 / rtol 1e-5 on the gradients."""
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for a, b in zip(got[1], want[1]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-5)
+
+
 # -- the worker ---------------------------------------------------------------
 
 def worker(out_dir, world, rank):
@@ -106,6 +169,7 @@ def worker(out_dir, world, rank):
     )
     from volumetric_renderer_torch.parallel.train import (
         init_depth_state, make_depth_train_step, make_train_step,
+        stack_cameras,
     )
 
     torch.set_num_threads(1)
@@ -134,6 +198,16 @@ def worker(out_dir, world, rank):
         res[f"depth_window_{axis}"] = (float(dmin), float(dmax))
 
     targets = targets_of(vol, tf, settings, cams)
+    init = sgd_state(vol, tf).params
+    for layout in GRAD_LAYOUTS:
+        f = make_sharded_renderer(None, settings, row_layout=layout)
+        res[f"batched_render_{layout}"] = (
+            grads_of(f, vol, tf, stack_cameras(cams)),
+            [grads_of(f, vol, tf, c) for c in cams])
+        args = (settings, layout, init["vol"].detach(), init["tf"].detach(),
+                fixed_of(vol, tf), cams, targets)
+        res[f"batched_step_{layout}"] = (batched_step(*args),
+                                         per_view_step(*args))
     step = make_train_step(settings, optimize_vol=True, optimize_tf=True,
                            row_layout="tile-cyclic")
     state, loss = step(sgd_state(vol, tf), fixed_of(vol, tf), cams, targets)
@@ -307,6 +381,25 @@ def test_pixel_train_step_is_replicated_and_equals_one_process(runs,
                            2e-4)
 
 
+@pytest.mark.parametrize("layout", GRAD_LAYOUTS)
+def test_batched_views_equal_the_per_view_loop_in_a_group(runs, layout):
+    """In the gloo group, every view in one march equals one march per view:
+    the sharded frames bit for bit and their grid, TF and window gradients
+    within atol 1e-4 / rtol 1e-5; the train step's loss and gradients as
+    ``assert_steps_equal``."""
+    _, res = runs
+    for r in res:
+        (img, grads), per_view = r[f"batched_render_{layout}"]
+        assert img.shape == (len(YAWS),) + HW + (4,)
+        for i, (one, _) in enumerate(per_view):
+            assert torch.equal(img[i], one)
+        for k, g in enumerate(grads):
+            want = sum(v[1][k] for v in per_view)
+            np.testing.assert_allclose(g.numpy(), want.numpy(), atol=1e-4,
+                                       rtol=1e-5)
+        assert_steps_equal(*r[f"batched_step_{layout}"])
+
+
 def test_depth_train_step_keeps_chunks_and_equals_one_process(runs,
                                                               reference):
     world, res = runs
@@ -392,6 +485,19 @@ def test_cyclic_row_layout_equals_jax():
     for h, n in [(1080, 8), (24, 8), (128, 4), (48, 3)]:
         for a, b in zip(cyclic_row_layout(h, n), jcyclic(h, n)):
             np.testing.assert_array_equal(a, b)
+
+
+def test_init_distributed_without_cuda_is_an_error(monkeypatch):
+    """With no ``device`` the ranks run on CUDA; where there is none that
+    is an error, not a quiet run on the CPU."""
+    from volumetric_renderer_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed.torch.cuda, "is_available",
+                        lambda: False)
+    for device in (None, "cuda", "cuda:1"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            distributed.init_distributed(device=device)
+    assert distributed.init_distributed(device="cpu") == torch.device("cpu")
 
 
 def test_world_of_one_without_a_process_group():

@@ -11,7 +11,11 @@ marcher parity tests do: each package's own rays differ by up to ~4e-6
   bias corrections differently, so parameters of order 1 differ by a few
   ulps).  Adam is checked apart from the train step because it turns a
   gradient whose sign flips at the noise floor into a difference of 2 * lr;
-* checkpoint resume on the CPU: bitwise.
+* checkpoint resume on the CPU: bitwise;
+* all views in one march against the per-view loop (the one-camera
+  sharded renderer per view, ``tests/test_torch_parallel.per_view_step``):
+  rtol 1e-5 on the loss, atol 1e-4 / rtol 1e-5 on the gradients (the
+  scatters add the same terms in another order).
 """
 
 import json
@@ -40,7 +44,9 @@ from volumetric_renderer_torch.parallel.train import (
     camera_views,
     init_state,
     make_train_step,
+    stack_cameras,
 )
+from volumetric_renderer_torch.render.api import render
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.transfer.gradient import Gradient
 from volumetric_renderer_torch.utils import metrics
@@ -50,6 +56,11 @@ from volumetric_renderer_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from volumetric_renderer_torch.utils.config import RenderSettings
+from tests.test_torch_parallel import (
+    assert_steps_equal,
+    batched_step,
+    per_view_step,
+)
 
 N, NTF, STEPS, HW = 8, 16, 12, 16
 SETTINGS = dict(height=HW, width=HW, step_size=1.8 / STEPS,
@@ -59,14 +70,20 @@ YAWS = (0.0, 180.0)
 
 @pytest.fixture
 def jax_rays(monkeypatch):
-    """Make the port march the JAX package's rays for its cameras."""
+    """Make the port march the JAX package's rays for its cameras, one
+    camera or a batch of views (a leading axis)."""
 
     def rays(camera, height, width, fov_y_degrees=40.0, near=0.1,
              far=10.0):
-        jcam = JCamera(camera.center.numpy(), camera.orientation.numpy(),
-                       camera.radius.numpy())
-        o, d = jray_grid(jcam, height, width, fov_y_degrees, near, far)
-        return torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d))
+        o, d = zip(*(jray_grid(JCamera(c.center.numpy(),
+                                       c.orientation.numpy(),
+                                       c.radius.numpy()),
+                               height, width, fov_y_degrees, near, far)
+                     for c in camera_views(camera)))
+        o, d = np.stack(o), np.stack(d)
+        if camera.orientation.dim() == 1:
+            o, d = o[0], d[0]
+        return torch.from_numpy(o), torch.from_numpy(d)
 
     monkeypatch.setattr(marcher, "ray_grid", rays)
 
@@ -175,6 +192,70 @@ def test_train_step_takes_a_batched_camera_and_clamps():
     t = state.params["tf"]
     assert torch.isfinite(loss) and t.min() >= 0.0 and t.max() <= 1.0
     assert ((t == 0.0) | (t == 1.0)).any()     # the huge step hit a clamp
+
+
+def three_views():
+    """The sphere, three views around it, their targets through the plain
+    render, and the window: CPU tensors."""
+    vol, tf, _, _, init = scene()
+    settings = RenderSettings(**SETTINGS)
+    cams = [OrbitCamera.from_angles(yaw_deg=y, pitch_deg=20.0)
+            for y in (0.0, 120.0, 240.0)]
+    fixed = port_fixed(vol, tf)
+    targets = torch.stack([render(fixed["vol"], fixed["tf"], c, settings,
+                                  density_min=0.0, density_max=1.0,
+                                  method="fused") for c in cams])
+    return settings, cams, fixed, targets, init
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "tile-cyclic"])
+@pytest.mark.parametrize("batch", ["list", "batched_camera"])
+def test_batched_step_equals_the_per_view_loop(layout, batch):
+    """One march for all views gives the per-view loop's loss and grid and
+    TF gradients (rtol 1e-5; atol 1e-4 / rtol 1e-5), from a list of
+    cameras or one camera with a leading view axis."""
+    settings, cams, fixed, targets, init = three_views()
+    start = (torch.from_numpy(init["vol"]), torch.from_numpy(init["tf"]))
+    got = batched_step(settings, layout, *start, fixed,
+                       cams if batch == "list" else stack_cameras(cams),
+                       targets)
+    want = per_view_step(settings, layout, *start, fixed, cams, targets)
+    assert got[0] > 1e-3 and all(float(g.abs().max()) > 0 for g in got[1])
+    assert_steps_equal(got, want)
+
+
+@pytest.mark.parametrize("max_views,launches", [(2, 2), (1, 3)])
+def test_views_past_the_launch_grid_split_into_fewest_groups(
+        monkeypatch, max_views, launches):
+    """Where the stacked rows pass ``kernels.march.MAX_ROWS`` the views are
+    marched in the fewest groups that fit, and the step equals the one
+    march."""
+    from volumetric_renderer_torch.kernels import march as kmarch
+    from volumetric_renderer_torch.parallel import render as prender
+
+    settings, cams, fixed, targets, init = three_views()
+    start = (torch.from_numpy(init["vol"]), torch.from_numpy(init["tf"]))
+    whole = batched_step(settings, "tile-cyclic", *start, fixed, cams,
+                         targets)
+    rows = prender.make_layout("tile-cyclic", HW, HW, 1)[0]
+    calls = []
+    make = prender.make_marcher
+
+    def counting(*a, **kw):
+        march = make(*a, **kw)
+
+        def counted(vol, tf, origin, dirs, *rest):
+            calls.append(dirs.shape[0])
+            return march(vol, tf, origin, dirs, *rest)
+        return counted
+
+    monkeypatch.setattr(prender, "make_marcher", counting)
+    monkeypatch.setattr(kmarch, "MAX_ROWS", max_views * rows + rows - 1)
+    split = batched_step(settings, "tile-cyclic", *start, fixed, cams,
+                         targets)
+    assert len(calls) == launches and sum(calls) == 3 * rows
+    assert max(calls) <= kmarch.MAX_ROWS
+    assert_steps_equal(split, whole)
 
 
 def adam_invert_state():

@@ -27,10 +27,24 @@ early termination on, through ``render(method="kernel")``: ray setup and
 K1), ``step_config3_ms`` (``render(method="kernel")`` and the backward of a
 pixel loss at config 3),
 ``app_step_config4_ms`` (the mean step wall time of ``apps.optimize
-invert`` at config 4: 32 views at 256x256, 5 steps after a 1-step run) and
+invert`` at config 4: 32 views at 256x256, 5 steps after a 1-step run),
 ``app_step_config5_depth_ms`` (the same for config 5 under ``--parallel
 depth`` in one process: the 512^3 sphere, 2 views at 1920x1080, 3 steps
-after a 1-step run).
+after a 1-step run) and ``app_step_config5_pixels_ms`` (config 5 under
+``--parallel pixels``, 8 views, in one process);
+
+and for the config-4 step itself (``parallel.train.make_train_step``, as
+``apps.optimize invert`` runs it: 32 views of the 256^3 sphere at 256x256,
+512 steps, tile-cyclic, Adam, the loss read on the host every step):
+``step_config4_ms`` (CUDA events around a step), ``step_config4_device_ms``
+and ``step_config4_device_ops`` (per step, the device time and the count
+of the ``torch.profiler``'s device entries, kernels, copies and fills, but
+host-device copies), ``step_config4_launches`` (K1 and K2 launches and K1
+texture copies per step), ``step_config4_host_top`` (the 10 host entries
+of most self time per step, ``[name, ms, calls]``), and
+``k1_config4_stacked_ms``,
+``k2_config4_stacked_ms`` (K1 and K2 on the 32 views' tile-cyclic rays
+stacked along rows, built view by view, the step's single launch of each).
 
 ``--what k1`` times K1 alone on these cases, each twice: ``k1_<case>_
 event_ms``, CUDA events around the whole ``march_forward`` call (the
@@ -109,6 +123,91 @@ def device_ms(fn, iters: int, kernel: str):
         return None, 0, None, []
     return (statistics.median(us) / 1e3, len(us), sum(us) / 1e3 / iters,
             sorted({e.name for e in hits}))
+
+
+def config4_step(vol, tf, iters: int) -> dict:
+    """The ``step_config4_*`` and ``k*_config4_stacked_ms`` times of the
+    module docstring, on the 256^3 grid ``vol`` and the TF ``tf``."""
+    from volumetric_renderer_torch.core.marcher import (
+        frame_inputs, prepare_rays,
+    )
+    from volumetric_renderer_torch.kernels.march import (
+        march_backward, march_forward,
+    )
+    from volumetric_renderer_torch.parallel.mesh import make_layout
+    from volumetric_renderer_torch.parallel.train import (
+        init_state, make_train_step,
+    )
+    from volumetric_renderer_torch.render.api import render
+    from volumetric_renderer_torch.scene.camera import OrbitCamera
+    from volumetric_renderer_torch.utils.config import RenderSettings
+
+    dev = vol.device
+    settings = RenderSettings(height=256, width=256, step_size=1.8 / 512,
+                              early_termination=False)
+    cams = [OrbitCamera.from_angles(float(a), 20.0)
+            for a in np.linspace(0.0, 360.0, 32, endpoint=False)]
+    with torch.no_grad():
+        targets = torch.stack([render(vol, tf, c, settings, method="kernel")
+                               for c in cams])
+    fixed = dict(vol=vol, tf=tf, dmin=vol.min(), dmax=vol.max(),
+                 smin=torch.zeros(3, device=dev),
+                 smax=torch.ones(3, device=dev))
+    step = make_train_step(settings, optimize_vol=True, optimize_tf=False,
+                           row_layout="tile-cyclic")
+    state = [init_state({"vol": torch.full_like(vol, 0.3)},
+                        lambda p: torch.optim.Adam(p, lr=5e-2))]
+
+    def one_step():
+        state[0], loss = step(state[0], fixed, cams, targets)
+        float(loss)
+
+    res = {"step_config4_ms": cuda_ms(one_step, iters)}
+    _, n, per_step, _ = device_ms(one_step, iters, "")
+    res["step_config4_device_ms"] = per_step
+    res["step_config4_device_ops"] = n / iters
+    torch.cuda.synchronize()
+    march_forward.launches = march_backward.launches = 0
+    march_forward.texture_fills = 0
+    one_step()
+    res["step_config4_launches"] = {
+        "march_fwd": march_forward.launches,
+        "march_bwd": march_backward.launches,
+        "texture_fills": march_forward.texture_fills}
+    # where the host's time goes: the operations and CUDA runtime calls of
+    # most self time on the host (a wait for the device shows as the self
+    # time of the runtime call that waits), ms and calls per step
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one_step()
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:10]
+    res["step_config4_host_top"] = [
+        [e.key, e.self_cpu_time_total / 3e3, e.count / 3] for e in top]
+
+    # the step's rays, view by view: each view's tile-cyclic block, stacked
+    gh, gw, pack, _, _ = make_layout("tile-cyclic", 256, 256, 1)
+    origins, dirs = [], []
+    for c in cams:
+        origin, d, dmin, dmax, smin, smax = frame_inputs(vol, c, settings)
+        dirs.append(pack(d))
+        origins.append(origin.expand(gh, 1, 3))
+    dirs = torch.cat(dirs).contiguous()
+    pos0, hit, inv_w = prepare_rays(torch.cat(origins), dirs, dmin, dmax)
+    kargs = (vol, tf, pos0, dirs, hit, dmin, inv_w, smin, smax)
+    march = dict(num_steps=512, step_size=1.8 / 512, early_termination=False,
+                 termination_eps=1.0 / 255.0)
+    g = np.random.default_rng(7).normal(size=tuple(hit.shape) + (4,))
+    g = torch.as_tensor(g.astype(np.float32), device=dev)
+    out = march_forward(*kargs, **march)
+    res["k1_config4_stacked_ms"] = cuda_ms(
+        lambda: march_forward(*kargs, **march), iters)
+    res["k2_config4_stacked_ms"] = cuda_ms(
+        lambda: march_backward(*kargs, out, g, **march), iters)
+    res["config4_stacked_shape"] = list(hit.shape)
+    return res
 
 
 def main(argv=None) -> dict:
@@ -256,6 +355,7 @@ def main(argv=None) -> dict:
         del vol5, kargs, g
 
     if args.what == "all":
+        res.update(config4_step(vol, tf, args.iters))
         inv = ["invert", "--grid", "256", "--size", "256x256",
                "--march-steps", "512", "--views", "32", "--device", "cuda"]
         with open(os.devnull, "w") as null, contextlib.redirect_stderr(null):
@@ -269,6 +369,12 @@ def main(argv=None) -> dict:
             optimize.main(c5 + ["--steps-opt", "1"])
             run = optimize.main(c5 + ["--steps-opt", "3"])
         res["app_step_config5_depth_ms"] = \
+            1e3 * run["train_s"] / len(run["losses"])
+        c5[c5.index("--views") + 1], c5[-1] = "8", "pixels"
+        with open(os.devnull, "w") as null, contextlib.redirect_stderr(null):
+            optimize.main(c5 + ["--steps-opt", "1"])
+            run = optimize.main(c5 + ["--steps-opt", "3"])
+        res["app_step_config5_pixels_ms"] = \
             1e3 * run["train_s"] / len(run["losses"])
 
     print(json.dumps(res), flush=True)

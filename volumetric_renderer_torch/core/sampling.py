@@ -128,7 +128,8 @@ def ray_box_intersect(origin: torch.Tensor, dirs: torch.Tensor,
                       box_min: float = 0.0, box_max: float = 1.0):
     """Slab test of rays against the axis-aligned box ``[box_min, box_max]^3``.
 
-    ``origin``: ``(3,)``; ``dirs``: ``(..., 3)`` unit directions.
+    ``origin``: ``(3,)``, or broadcast against ``dirs`` (one per ray);
+    ``dirs``: ``(..., 3)`` unit directions.
     Returns ``(t_entry, t_exit, hit)``.
 
     ``hit`` additionally requires ``t_entry >= 0``: the reference draws the

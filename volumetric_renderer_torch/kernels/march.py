@@ -40,6 +40,10 @@ march_forward_plain = march_prepared
 march_backward_plain = march_backward_prepared
 
 _libs: dict = {}
+#: Rows of rays one launch of K1 or K2 takes at most: its launch grid has
+#: at most 65535 blocks of 16 rows along y.  A caller with more rows splits
+#: them over several launches (``parallel/render.make_sharded_renderer``).
+MAX_ROWS = 65535 * 16
 #: Copies of K2's (N, 4) f64 TF-gradient table in global memory, one per
 #: block index mod copies, which the wrapper sums: fewer blocks reduce into
 #: one address at once.
@@ -146,9 +150,10 @@ def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
     if max(*vol.shape, height, width) >= 2 ** 31:
         raise ValueError(f"{fn}: a dimension past 2^31 - 1 does not fit the "
                          "kernel's int arguments")
-    if -(-height // 16) > 65535:
-        raise ValueError(f"{fn}: {height} rows need more than the 65535 "
-                         "blocks a launch grid has along y")
+    if height > MAX_ROWS:
+        raise ValueError(f"{fn}: {height} rows need more than the "
+                         f"{-(-MAX_ROWS // 16)} blocks of 16 a launch grid "
+                         "has along y")
 
     lib = load_library(name)
     dev_index = device.index if device.index is not None else \
@@ -179,17 +184,26 @@ def _window(fn: str, device, dmin, inv_window, smin, smax) -> torch.Tensor:
     return torch.cat(parts)
 
 
+#: :func:`_one_wave` for each ``(device index, TF texels)`` queried.
+_waves: dict = {}
+
+
 def _one_wave(lib, dev_index: int, ntf: int) -> int:
     """The blocks of K2 (its TF gradient in global memory) that the device
     runs at once.  A launch of more runs in waves and is bound by
     throughput, so K2 then sums each block's TF gradient in shared memory
     first; a launch of at most one wave is bound by each thread's chain of
-    dependent latencies, and K2 then adds to global memory directly."""
-    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    _check_cuda(lib.march_bwd_occupancy(dev_index, ntf, ctypes.byref(per_sm),
-                                        ctypes.byref(sms)),
-                lib, "march_bwd", "reading the occupancy")
-    return per_sm.value * sms.value
+    dependent latencies, and K2 then adds to global memory directly.  The
+    occupancy query runs once per device and TF size."""
+    key = (dev_index, ntf)
+    if key not in _waves:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        _check_cuda(lib.march_bwd_occupancy(dev_index, ntf,
+                                            ctypes.byref(per_sm),
+                                            ctypes.byref(sms)),
+                    lib, "march_bwd", "reading the occupancy")
+        _waves[key] = per_sm.value * sms.value
+    return _waves[key]
 
 
 @dataclasses.dataclass

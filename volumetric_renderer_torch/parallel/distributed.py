@@ -35,17 +35,21 @@ def init_distributed(init_method: Optional[str] = None,
                      device=None) -> torch.device:
     """Join the process group of this run; return this rank's device.
 
-    ``device`` is the kind of device the ranks run on (default: ``cuda``
-    where one is available, else ``cpu``); the backend is ``nccl`` for CUDA
-    and ``gloo`` for the CPU.  A CUDA rank uses ``cuda:LOCAL_RANK`` (or
-    ``cuda:rank`` modulo the device count without ``LOCAL_RANK``).
+    ``device`` is the kind of device the ranks run on (default ``cuda``;
+    without a CUDA device that raises, so a run that wants the CPU passes
+    ``device="cpu"``); the backend is ``nccl`` for CUDA and ``gloo`` for
+    the CPU.  A CUDA rank uses ``cuda:LOCAL_RANK`` (or ``cuda:rank`` modulo
+    the device count without ``LOCAL_RANK``).
 
     With no ``init_method`` and no ``RANK``/``WORLD_SIZE`` in the
     environment this is a single-process run: nothing is initialised and
     ``device`` is returned as given.  An already initialised group is kept.
     """
-    device = torch.device(device if device is not None else
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"init_distributed: device {device}, but no CUDA "
+                           "device is available; pass device='cpu' to run "
+                           "on the CPU")
     if dist.is_initialized():
         return _rank_device(device, dist.get_rank())
     env = os.environ

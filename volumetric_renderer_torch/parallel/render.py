@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from volumetric_renderer_torch.core.marcher import frame_inputs
+from volumetric_renderer_torch.kernels import march as kernel_march
 from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils.config import RenderSettings
@@ -105,12 +106,22 @@ def make_sharded_renderer(group, settings: RenderSettings,
     ``render``).  ``tile-cyclic`` gives each rank a ``(T*16/n, 16)`` image,
     which the kernel tiles in exactly the original 16x16 tiles.
 
+    A camera of V views (a leading axis on its fields, ``scene.camera.
+    OrbitCamera``) renders all of them in one march: the ray setup runs
+    once for the V views, each view's block is cut as above, and the V
+    blocks are stacked along rows into one ``(V*gh/n, gw)`` image of rays.
+    Where that passes the rows one kernel launch takes
+    (``kernels.march.MAX_ROWS``), the views are marched in as few groups
+    as fit.
+
     The output is the whole image, gathered and unpacked; with
     ``permuted_output=True`` it is this rank's ``(gh/n, gw, 4)`` block in
-    shard order (what the train step's loss takes).  ``vol``, ``tf`` and
-    the density window are replicated: their gradients are summed across
-    the ranks once, in the backward, unless ``reduce_grads=False`` leaves
-    that to the caller (the train step sums once after all its views).
+    shard order (what the train step's loss takes).  A camera of V views
+    puts its leading axis on either: ``(V, H, W, 4)``, ``(V, gh/n, gw,
+    4)``.  ``vol``, ``tf`` and the density window are replicated: their
+    gradients are summed across the ranks once, in the backward, unless
+    ``reduce_grads=False`` leaves that to the caller (the train step sums
+    once a step).
     """
     _, rank, world = group_info(group)
     h, w = settings.height, settings.width
@@ -123,18 +134,32 @@ def make_sharded_renderer(group, settings: RenderSettings,
         march = make_marcher(select_method(method, vol), settings)
         origin, dirs, dmin, dmax, smin, smax = frame_inputs(
             vol, camera, settings, dmin, dmax, smin, smax)
-        dirs = pack(dirs)
+        views = tuple(dirs.shape[:-3])          # () for one camera, or (V,)
+        # the views ride through the layout as a channel axis: (H, W, V, 3)
+        dirs = pack(dirs.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
         if padded:
             up = torch.tensor([0.0, 0.0, 1.0], device=dev)
-            dirs = torch.where(valid.to(dev)[..., None] > 0.0, dirs, up)
-        block = dirs[rank * rows:(rank + 1) * rows].contiguous()
+            dirs = torch.where(valid.to(dev)[..., None, None] > 0.0, dirs,
+                               up)
+        block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
+        origin = origin.reshape((-1, 1, 1, 3))      # one per view
         if reduce_grads:
             vol, tf, dmin, dmax = (sum_across(x, group)
                                    for x in (vol, tf, dmin, dmax))
-        img = march(vol, tf, origin, block, dmin, dmax, smin, smax)
+        # the fewest launches whose stacked rows the kernels take
+        per = max(1, kernel_march.MAX_ROWS // rows)
+        parts = [
+            march(vol, tf,
+                  origin[i:i + per].expand(-1, rows, 1, 3).reshape(-1, 1, 3),
+                  block[i:i + per].reshape(-1, gw, 3).contiguous(), dmin,
+                  dmax, smin, smax)
+            for i in range(0, block.shape[0], per)]
+        img = parts[0] if len(parts) == 1 else torch.cat(parts)
+        img = img.reshape((-1, rows, gw, 4))        # (V, rows, gw, 4)
         if permuted_output:
-            return img
-        return unpack(gather_blocks(img, group))
+            return img.reshape(views + (rows, gw, 4))
+        img = unpack(gather_blocks(img.permute(1, 2, 0, 3), group))
+        return img.permute(2, 0, 1, 3).reshape(views + (h, w, 4))
 
     return render_fn
 

@@ -73,6 +73,16 @@ def camera_views(cameras) -> list:
     return list(cameras)
 
 
+def stack_cameras(cameras) -> OrbitCamera:
+    """The posed views as one batched camera (a leading view axis on every
+    field): a batched camera as it is, one camera or a list stacked."""
+    if isinstance(cameras, OrbitCamera) and cameras.orientation.dim() == 2:
+        return cameras
+    views = camera_views(cameras)
+    return OrbitCamera(*(torch.stack([getattr(c, f) for c in views])
+                         for f in ("center", "orientation", "radius")))
+
+
 def _clamp(params: dict, optimize_vol: bool, optimize_tf: bool) -> None:
     with torch.no_grad():
         if optimize_tf:
@@ -90,7 +100,7 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
     the pixels of every view sharded over the ranks of ``group`` (None: the
     default group, or a world of one without one) in ``row_layout``.
 
-    ``cameras``: the posed views (see :func:`camera_views`); ``targets``:
+    ``cameras``: the posed views (see :func:`stack_cameras`); ``targets``:
     ``(V, H, W, 4)``, the same on every rank.  ``fixed`` carries whichever
     of ``vol``/``tf`` is not optimized and the windows ``dmin``, ``dmax``,
     ``smin``, ``smax`` as constants, so no gradient reaches the grid
@@ -98,13 +108,14 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
 
     The loss is the mean over views of ``mean((img - target)**2)`` over all
     four channels, taken in shard order: each rank sums the squared error
-    over its own block, masked by the layout's ``valid``, and divides by
-    ``H*W*4``.  Each view's render is differentiated as soon as it is made
-    (``backward`` of ``loss_v / V``), so only one view's graph is alive at a
-    time.  After the views the loss and the gradients are summed across the
-    ranks (``all_reduce``, once), then one optimizer step and, in place,
-    the clamps: TF to [0, 1], grid to >= 0.  Every rank's parameters stay
-    identical.
+    over its own blocks, masked by the layout's ``valid``, and divides by
+    ``H*W*4*V``.  All the views are rendered in one march (the sharded
+    renderer's batched camera): one ray setup, and one K1 and one K2
+    launch on a CUDA grid, or the fewest the launch grid allows
+    (``kernels.march.MAX_ROWS``); then one ``backward``.  After it the loss
+    and the gradients are summed across the ranks (``all_reduce``, once),
+    then one optimizer step and, in place, the clamps: TF to [0, 1], grid
+    to >= 0.  Every rank's parameters stay identical.
     """
     group, rank, world = group_info(group)
     h, w = settings.height, settings.width
@@ -120,23 +131,24 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
         params, opt = state.params, state.optimizer
         vol = params["vol"] if optimize_vol else fixed["vol"]
         tf = params["tf"] if optimize_tf else fixed["tf"]
-        views = camera_views(cameras)
+        cams = stack_cameras(cameras)
+        n_views = cams.orientation.shape[0]
         opt.zero_grad(set_to_none=True)
-        vmask = mask.to(targets.device)
-        total = torch.zeros((), dtype=torch.float32, device=targets.device)
-        for i, cam in enumerate(views):
-            img = render_fn(vol, tf, cam, fixed["dmin"], fixed["dmax"],
-                            fixed["smin"], fixed["smax"])
-            target = pack(targets[i])[rank * rows:(rank + 1) * rows]
-            loss_v = torch.sum((img - target) ** 2 * vmask) / float(h * w * 4)
-            (loss_v / len(views)).backward()
-            total = total + loss_v.detach()
+        img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
+                        fixed["smin"], fixed["smax"])  # (V, rows, gw, 4)
+        # every view's target packed as the renderer packs its rays
+        target = pack(targets.permute(1, 2, 0, 3))[rank * rows:
+                                                   (rank + 1) * rows]
+        sq = (img - target.permute(2, 0, 1, 3)) ** 2 * mask.to(img.device)
+        loss = torch.sum(sq) / float(h * w * 4) / n_views
+        loss.backward()
+        total = loss.detach().clone()
         all_reduce_grads(params.values(), group)
         if world > 1:
             dist.all_reduce(total, group=group)
         opt.step()
         _clamp(params, optimize_vol, optimize_tf)
-        return state._replace(step=state.step + 1), total / len(views)
+        return state._replace(step=state.step + 1), total
 
     return train_step
 

@@ -38,7 +38,10 @@ class OrbitCamera:
 
     Three float32 tensors: ``center`` (3,), ``orientation`` (4,) as
     ``[w, x, y, z]`` and ``radius`` (scalar).  Functional: ``rotate`` and
-    ``zoom`` return new cameras.
+    ``zoom`` return new cameras.  A batch of V posed views is one camera
+    whose fields carry a leading axis, ``(V, 3)``, ``(V, 4)`` and ``(V,)``:
+    :meth:`position`, :meth:`view_matrix`, :func:`projection_matrix` and
+    :func:`ray_grid` take it (``rotate`` and ``zoom`` take one camera).
     """
 
     #: drag sensitivity in degrees per pixel (``camera.cpp:18``)
@@ -100,15 +103,16 @@ class OrbitCamera:
     def position(self):
         """``center - radius * (q * (0,-1,0))`` (``camera.cpp:36-40``)."""
         forward = quat.rotate_vector(self.orientation, [0.0, -1.0, 0.0])
-        return self.center - self.radius * forward
+        return self.center - self.radius[..., None] * forward
 
     def view_matrix(self):
         """``transpose(mat4_cast(q)) * translate(-position)``."""
-        r = quat.to_rotation_matrix(self.orientation).T
+        r = quat.to_rotation_matrix(self.orientation).transpose(-1, -2)
         pos = self.position()
-        m = torch.eye(4, dtype=torch.float32, device=r.device)
-        m[:3, :3] = r
-        m[:3, 3] = -(r * pos).sum(-1)
+        m = torch.eye(4, dtype=torch.float32, device=r.device).expand(
+            r.shape[:-2] + (4, 4)).contiguous()
+        m[..., :3, :3] = r
+        m[..., :3, 3] = -(r * pos[..., None, :]).sum(-1)
         return m
 
 
@@ -165,7 +169,10 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
 
     Returns ``(origin[3], dirs[H, W, 3])`` with unit-norm directions,
     identical to the shader's ``normalize(frag_pos - camera_pos)``
-    (``volume.frag:23``) for every point of the rasterized cube.
+    (``volume.frag:23``) for every point of the rasterized cube.  A camera
+    of V views (leading axis, see :class:`OrbitCamera`) gives
+    ``(origin[V, 3], dirs[V, H, W, 3])`` with the same operations, each
+    broadcast over the views.
     """
     dev = camera.orientation.device
     aspect = float(width) / float(height)
@@ -178,10 +185,12 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
           / width) - 1.0
     ndc_y, ndc_x = torch.meshgrid(ys, xs, indexing="ij")
 
+    cols = m_inv[..., None, None, :, :]        # over (H, W) of each view
+
     def unproject(z):
         # (ndc_x, ndc_y, z, 1) @ m_inv.T over m_inv's four columns
-        w = (ndc_x[..., None] * m_inv[:, 0] + ndc_y[..., None] * m_inv[:, 1]
-             + (z * m_inv[:, 2] + m_inv[:, 3]))
+        w = (ndc_x[..., None] * cols[..., 0] + ndc_y[..., None] * cols[..., 1]
+             + (z * cols[..., 2] + cols[..., 3]))
         return w[..., :3] / w[..., 3:4]
 
     p_near = unproject(0.25)

@@ -3,6 +3,8 @@
 The reference uses ``glm::quat`` for its orbit camera
 (``src/scene/camera.cpp``).  These are plain torch functions over shape-(4,)
 float32 tensors ``[w, x, y, z]``; results stay on the input's device.
+:func:`rotate_vector` and :func:`to_rotation_matrix` also take quaternions
+with leading axes ``(..., 4)`` (a batch of camera poses).
 """
 
 from __future__ import annotations
@@ -35,27 +37,27 @@ def multiply(q1, q2):
 
 def rotate_vector(q, v):
     """q * v * q^-1 — rotate vector v by unit quaternion q."""
-    w = q[0]
-    u = q[1:]
+    w = q[..., 0, None]
+    u = q[..., 1:]
     v = torch.as_tensor(v, dtype=torch.float32, device=q.device)
     # Rodrigues form: v' = v + 2w (u x v) + 2 u x (u x v)
-    uv = torch.linalg.cross(u, v)
+    uv = torch.linalg.cross(u, v.expand_as(u))
     uuv = torch.linalg.cross(u, uv)
     return v + 2.0 * (w * uv + uuv)
 
 
 def to_rotation_matrix(q):
     """3x3 rotation matrix equivalent to glm::mat3_cast(q)."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack(
         [
             torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
-                         2 * (x * z + w * y)]),
+                         2 * (x * z + w * y)], dim=-1),
             torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
-                         2 * (y * z - w * x)]),
+                         2 * (y * z - w * x)], dim=-1),
             torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
-                         1 - 2 * (x * x + y * y)]),
-        ]
+                         1 - 2 * (x * x + y * y)], dim=-1),
+        ], dim=-2
     ).to(torch.float32)
 
 
