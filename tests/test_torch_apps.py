@@ -258,7 +258,7 @@ def test_viewer_press_and_motion_agree_on_y(fake_pyplot):
 def test_viewer_frames_through_render():
     """``make_frame_renderer`` under ``ViewerState``: one render per
     event, and the reset frame equals the first."""
-    vol = models.sphere(16).as_torch()
+    vol = models.sphere(16).as_torch("cpu")
     from volumetric_renderer_torch.apps.render_cli import load_tf
 
     render_frame = viewer.make_frame_renderer(
@@ -307,7 +307,7 @@ def test_bench_grad_keys_and_spread(capsys):
 
 
 def small_march(h=16, w=12, n=16, steps=16):
-    vol = models.sphere(n).as_torch()
+    vol = models.sphere(n).as_torch("cpu")
     tf = torch.as_tensor(bench.bench_tf())
     settings = RenderSettings(height=h, width=w, step_size=1.8 / steps)
     origin, dirs = ray_grid(OrbitCamera.from_angles(30.0, 20.0), h, w)

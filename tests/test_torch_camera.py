@@ -177,12 +177,28 @@ def test_ray_grid_wide_fov_and_reference_arrays():
     jc = jcam.OrbitCamera.from_angles(75.0, -10.0, 0.9)
     _, _, tc = from_reference_arrays(
         np.zeros((2, 2, 2)), np.zeros((2, 4)), np.asarray(jc.center),
-        np.asarray(jc.orientation), np.asarray(jc.radius))
+        np.asarray(jc.orientation), np.asarray(jc.radius), device="cpu")
     own = tcam.OrbitCamera.from_angles(75.0, -10.0, 0.9)
     np.testing.assert_array_equal(n(tc.orientation), n(own.orientation))
     _, dirs = tcam.ray_grid(tc, 20, 30, fov_y_degrees=90.0)
     _, jdirs = jcam.ray_grid(jc, 20, 30, fov_y_degrees=90.0)
     np.testing.assert_allclose(n(dirs), np.asarray(jdirs), atol=RAY_ATOL)
+
+
+def test_reference_arrays_default_to_cuda_and_raise_without_it(monkeypatch):
+    """``from_reference_arrays`` places the scene on the CUDA card unless
+    the caller asks for the CPU; where there is no CUDA device that is an
+    error, not quietly CPU tensors."""
+    arrays = (np.ones((2, 2, 2)), np.ones((2, 4)), np.zeros(3),
+              np.array([1.0, 0.0, 0.0, 0.0]), np.array(2.0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}, {"device": torch.device("cuda:1")}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            from_reference_arrays(*arrays, **kw)
+    vol_t, tf_t, cam = from_reference_arrays(*arrays, device="cpu")
+    assert all(t.device.type == "cpu" for t in
+               (vol_t, tf_t, cam.center, cam.orientation, cam.radius))
+    assert vol_t.dtype == torch.float32 and vol_t.shape == (2, 2, 2)
 
 
 @pytest.mark.parametrize("allow", [True, False])

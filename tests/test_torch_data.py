@@ -143,12 +143,27 @@ def test_volume_as_torch_and_models_match_jax():
              (tmodels.head_phantom(24, seed=5), jmodels.head_phantom(24, seed=5))]
     for got, want in pairs:
         assert_same_volume(got, want)
-        t = got.as_torch()
+        t = got.as_torch("cpu")
         assert t.dtype == torch.float32 and t.is_contiguous()
         assert t.device.type == "cpu"
         np.testing.assert_array_equal(t.numpy(), np.asarray(want.as_jax()))
     with pytest.raises(ValueError):
         Volume.from_array(np.zeros((2, 2)))
+
+
+def test_volume_as_torch_defaults_to_cuda_and_raises_without_it(
+        monkeypatch):
+    """``as_torch()`` places the grid on the CUDA card, as ``as_jax()``
+    places it on the accelerator; where there is no CUDA device that is an
+    error, not a quiet CPU tensor.  ``"cpu"`` is asked for by name."""
+    vol = tmodels.sphere(4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for args in ((), ("cuda",), ("cuda:1",), (torch.device("cuda"),)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            vol.as_torch(*args)
+    t = vol.as_torch("cpu")
+    assert t.device.type == "cpu"
+    np.testing.assert_array_equal(t.numpy(), vol.data)
 
 
 def test_native_dir_is_the_repo_native_library():

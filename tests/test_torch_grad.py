@@ -189,7 +189,7 @@ def test_fused_backward_matches_jax_pallas_backward_kernel():
 def test_render_fused_grads_match_oracle_autograd(n, steps, et):
     """``render(method="fused")`` (the re-march Function) against plain
     autograd through ``render(method="oracle")``: grid, TF and window."""
-    vol = models.sphere(n).as_torch()
+    vol = models.sphere(n).as_torch("cpu")
     tf = torch.from_numpy(ramp_tf(8))
     cam = OrbitCamera.from_angles(120.0, -35.0)
     settings = RenderSettings(height=16, width=16, step_size=1.8 / steps,
@@ -235,7 +235,7 @@ def test_render_loss_and_grads_matches_jax(loss):
         JSettings(**kw), loss=loss, method="fused")
     vol_t, tf_t, cam = from_reference_arrays(
         vol, tf, np.asarray(jcam.center), np.asarray(jcam.orientation),
-        np.asarray(jcam.radius))
+        np.asarray(jcam.radius), device="cpu")
     tv, (tvol_g, ttf_g) = tapi.render_loss_and_grads(
         vol_t, tf_t, cam, torch.from_numpy(target), RenderSettings(**kw),
         loss=loss, method="fused")

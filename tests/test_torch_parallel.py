@@ -37,6 +37,8 @@ N, NTF, HW, STEP = 16, 32, (24, 16), 0.05
 LAYOUTS = ("contiguous", "cyclic", "tile-cyclic", "tile-shuffle")
 GRAD_LAYOUTS = ("contiguous", "tile-cyclic")
 YAWS = (33.0, 213.0)            # one view marching each way
+# two opposite eyes: their rays march both ways along every axis
+OPPOSED = ((33.0, 21.0), (213.0, -21.0))
 DEPTH_AXES = (0, 1, 2)
 LR = 100.0
 
@@ -75,6 +77,13 @@ def grads_of(render_fn, vol, tf, cam):
                     torch.ones(3))
     torch.sum(torch.sin(3.0 * img)).backward()
     return img.detach(), [x.grad for x in xs]
+
+
+def opposed_cameras():
+    from volumetric_renderer_torch.scene.camera import OrbitCamera
+
+    return [OrbitCamera.from_angles(yaw_deg=y, pitch_deg=p)
+            for y, p in OPPOSED]
 
 
 def targets_of(vol, tf, settings, cams):
@@ -147,6 +156,66 @@ def per_view_step(settings, layout, vol, tf, fixed, cams, targets):
     return float(total / len(cams)), [x.grad for x in xs]
 
 
+def batched_depth_step(settings, axis, vol, tf, fixed, cams, targets, lr):
+    """One step of ``make_depth_train_step`` (every view in one call of
+    the depth-sharded renderer) from the whole grid ``vol`` and the TF
+    ``tf`` under ``torch.optim.SGD(lr)``: ``(loss, [vol_g, tf_g], [vol,
+    tf])``, this rank's rows of the grid."""
+    from volumetric_renderer_torch.parallel.train import (
+        init_depth_state, make_depth_train_step,
+    )
+
+    step = make_depth_train_step(settings, optimize_vol=True,
+                                 optimize_tf=True, vol_shape=vol.shape,
+                                 axis=axis)
+    state = init_depth_state({"vol": vol, "tf": tf},
+                             lambda p: torch.optim.SGD(p, lr=lr), axis=axis)
+    state, loss = step(state, fixed, cams, targets)
+    xs = [state.params[k] for k in ("vol", "tf")]
+    return float(loss), [x.grad for x in xs], [x.detach() for x in xs]
+
+
+def per_view_depth_step(settings, axis, vol, tf, fixed, cams, targets, lr):
+    """:func:`batched_depth_step` by a loop over the views: the one-camera
+    depth-sharded renderer per view, each view's loss differentiated
+    alone, the TF gradient summed across the ranks once after the loop,
+    then the SGD step and the clamps."""
+    from volumetric_renderer_torch.parallel.depth import (
+        make_depth_sharded_renderer, split_rows,
+    )
+    from volumetric_renderer_torch.parallel.render import all_reduce_grads
+
+    f = make_depth_sharded_renderer(None, settings, vol_shape=vol.shape,
+                                    axis=axis, reduce_grads=False)
+    xs = [split_rows(vol, axis).requires_grad_(True),
+          tf.detach().clone().requires_grad_(True)]
+    opt = torch.optim.SGD(xs, lr=lr)
+    total = torch.zeros(())
+    for i, cam in enumerate(cams):
+        img = f(*xs, cam, fixed["dmin"], fixed["dmax"], fixed["smin"],
+                fixed["smax"])
+        loss_v = torch.mean((img - targets[i]) ** 2)
+        (loss_v / len(cams)).backward()
+        total = total + loss_v.detach()
+    all_reduce_grads([xs[1]])
+    opt.step()
+    with torch.no_grad():
+        xs[0].clamp_(min=0.0)
+        xs[1].clamp_(0.0, 1.0)
+    return (float(total / len(cams)), [x.grad for x in xs],
+            [x.detach() for x in xs])
+
+
+def assert_depth_steps_equal(got, want):
+    """The batched depth step against the per-view loop: loss rtol 1e-6,
+    gradients and parameters after the step atol 1e-4 / rtol 1e-5."""
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-5)
+
+
 def assert_steps_equal(got, want):
     """Loss and gradients of the batched step against the per-view loop:
     rtol 1e-5 on the loss, atol 1e-4 / rtol 1e-5 on the gradients."""
@@ -196,6 +265,10 @@ def worker(out_dir, world, rank):
                 depth.gather_rows(g_local, axis), *rest]
         dmin, dmax = depth.global_window(local)
         res[f"depth_window_{axis}"] = (float(dmin), float(dmax))
+        both = opposed_cameras()
+        res[f"depth_batched_{axis}"] = (
+            grads_of(f, local, tf, stack_cameras(both)),
+            [grads_of(f, local, tf, c) for c in both])
 
     targets = targets_of(vol, tf, settings, cams)
     init = sgd_state(vol, tf).params
@@ -227,6 +300,15 @@ def worker(out_dir, world, rank):
                          depth.gather_rows(state.params["vol"].detach(), axis),
                          state.params["tf"].detach(),
                          tuple(state.params["vol"].shape))
+
+    both = opposed_cameras()
+    targets2 = targets_of(vol, tf, settings, both)
+    start = [v.detach() for v in sgd_state(vol, tf).params.values()]
+    for axis in DEPTH_AXES:
+        args = (settings, axis, *start,
+                fixed_of(depth.split_rows(vol, axis), tf), both, targets2, LR)
+        res[f"depth_step_pair_{axis}"] = (batched_depth_step(*args),
+                                          per_view_depth_step(*args))
 
     try:
         depth.make_depth_sharded_renderer(None, settings,
@@ -411,6 +493,43 @@ def test_depth_train_step_keeps_chunks_and_equals_one_process(runs,
         np.testing.assert_allclose(got_loss, loss, rtol=5e-4)
     _, got_vol, got_tf, _ = res[0]["depth_step"]    # the grid on rank 0
     assert_steps_close([got_vol, got_tf], [vol, tf], reference["init"], 5e-4)
+
+
+@pytest.mark.parametrize("axis", DEPTH_AXES)
+def test_depth_batched_views_equal_per_camera_calls_in_a_group(runs, axis):
+    """In the gloo group, two opposite views (rays marching both ways
+    along ``axis``) in one call of the depth-sharded renderer equal one
+    call per camera: the folded frames bit for bit, this rank's grid rows'
+    gradient and the TF and window gradients within atol 1e-4 / rtol
+    1e-5."""
+    world, res = runs
+    for r in res:
+        (img, grads), per_view = r[f"depth_batched_{axis}"]
+        assert img.shape == (len(OPPOSED),) + HW + (4,)
+        assert grads[0].shape[axis] == N // world
+        for i, (one, _) in enumerate(per_view):
+            assert torch.equal(img[i], one)
+        assert float(img[..., 3].max()) > 0.3
+        for k, g in enumerate(grads):
+            want = sum(v[1][k] for v in per_view)
+            assert float(want.abs().max()) > 0
+            np.testing.assert_allclose(g.numpy(), want.numpy(), atol=1e-4,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("axis", DEPTH_AXES)
+def test_depth_batched_step_equals_the_per_view_loop_in_a_group(runs, axis):
+    """In the gloo group, ``make_depth_train_step`` (both views in one
+    call) equals a loop of one call per view built in the test, as
+    ``assert_depth_steps_equal``; every rank holds the same loss and TF."""
+    world, res = runs
+    for r in res:
+        got, want = r[f"depth_step_pair_{axis}"]
+        assert got[2][0].shape[axis] == N // world
+        assert got[0] > 1e-3
+        assert_depth_steps_equal(got, want)
+        first = res[0][f"depth_step_pair_{axis}"][0]
+        assert got[0] == first[0] and torch.equal(got[2][1], first[2][1])
 
 
 def test_depth_not_divisible_raises(runs):

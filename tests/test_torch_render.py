@@ -62,7 +62,7 @@ def test_render_matches_jax(case):
     jcam = JCamera.from_angles(yaw, pitch)
     vol_t, tf_t, cam = from_reference_arrays(
         vol, tf, np.asarray(jcam.center), np.asarray(jcam.orientation),
-        np.asarray(jcam.radius))
+        np.asarray(jcam.radius), device="cpu")
     jkw = {k: (jnp.asarray(v, jnp.float32) if isinstance(v, tuple) else v)
            for k, v in case.items()}
     for method, jmethod in [("oracle", "oracle"), ("fused", "fused"),

@@ -31,7 +31,7 @@ SMALL = RenderSettings(height=8, width=8, step_size=1.8 / 16)
 
 
 def small_scene():
-    vol = models.sphere(12).as_torch()
+    vol = models.sphere(12).as_torch("cpu")
     tf = torch.from_numpy(Gradient.grayscale_ramp().discretize(16))
     return vol, tf, OrbitCamera.from_angles(30.0, 20.0)
 
@@ -47,7 +47,7 @@ def test_package_renders_without_importing_jax():
         "    depth, distributed, mesh, render)\n"
         "from volumetric_renderer_torch.utils import checkpoint, convert\n"
         "from volumetric_renderer_torch.utils import metrics\n"
-        "v = models.sphere(12).as_torch()\n"
+        "v = models.sphere(12).as_torch('cpu')\n"
         "tf = torch.from_numpy(vt.Gradient.grayscale_ramp().discretize(16))\n"
         "img = vt.render(v, tf, vt.OrbitCamera.from_angles(30, 20),\n"
         "                vt.RenderSettings(height=8, width=8,\n"

@@ -40,11 +40,33 @@ and for the config-4 step itself (``parallel.train.make_train_step``, as
 and ``step_config4_device_ops`` (per step, the device time and the count
 of the ``torch.profiler``'s device entries, kernels, copies and fills, but
 host-device copies), ``step_config4_launches`` (K1 and K2 launches and K1
-texture copies per step), ``step_config4_host_top`` (the 10 host entries
-of most self time per step, ``[name, ms, calls]``), and
+texture copies per step), ``step_config4_host_top`` and
+``step_config4_device_top`` (the 10 host and device entries of most self
+time per step, ``[name, ms, calls]``), and
 ``k1_config4_stacked_ms``,
 ``k2_config4_stacked_ms`` (K1 and K2 on the 32 views' tile-cyclic rays
-stacked along rows, built view by view, the step's single launch of each).
+stacked along rows, built view by view, the step's single launch of each);
+and the same ``step_config5_depth_*`` fields for the depth-sharded step
+(``parallel.train.make_depth_train_step``) in one process: 8 views of the
+512^3 sphere at 1920x1080 on the optimize app's two opposing yaw arcs
+(-40..40 and 140..220 degrees, pitch 20), 512 steps, the grid split along
+their dominant axis, Adam, the loss read on the host every step.
+
+``--what app5`` gives ``app_step_config5_depth_8views_ms`` and
+``app_step_config5_pixels_8views_ms``: the mean step wall time of
+``apps.optimize invert`` at config 5 with 8 views under ``--parallel
+depth`` and ``--parallel pixels`` (4 steps after a 1-step run), in the
+process group ``torchrun`` starts, one process per card::
+
+    PYTHONPATH=<checkout> torchrun --standalone --nproc_per_node 4 \
+        volumetric_renderer_torch/apps/time_kernels.py --what app5
+
+The optimize app's own ``train_s`` alone would not do: its first step in
+a process builds the kernels (nvcc) and fills K1's texture, so a timed
+run must follow a warm-up run in the same process; this mode runs both
+parallel modes after their warm-ups in one process group (one start of
+the processes, not four) and prints one line with every card's name and
+power limit, as the other modes do.
 
 ``--what k1`` times K1 alone on these cases, each twice: ``k1_<case>_
 event_ms``, CUDA events around the whole ``march_forward`` call (the
@@ -125,6 +147,134 @@ def device_ms(fn, iters: int, kernel: str):
             sorted({e.name for e in hits}))
 
 
+def step_fields(prefix: str, one_step, iters: int) -> dict:
+    """``<prefix>_ms`` (CUDA events around ``one_step``), ``_device_ms``
+    and ``_device_ops`` (per step, the device time and the count of the
+    ``torch.profiler``'s device entries but host-device copies),
+    ``_launches`` (K1 and K2 launches and K1 texture copies per step),
+    ``_host_top`` (the 10 host entries of most self time per step,
+    ``[name, ms, calls]``) and ``_device_top`` (the same for the device
+    time) of a training step ``one_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volumetric_renderer_torch.kernels.march import (
+        march_backward, march_forward,
+    )
+
+    res = {f"{prefix}_ms": cuda_ms(one_step, iters)}
+    _, n, per_step, _ = device_ms(one_step, iters, "")
+    res[f"{prefix}_device_ms"] = per_step
+    res[f"{prefix}_device_ops"] = n / iters
+    torch.cuda.synchronize()
+    march_forward.launches = march_backward.launches = 0
+    march_forward.texture_fills = 0
+    one_step()
+    res[f"{prefix}_launches"] = {
+        "march_fwd": march_forward.launches,
+        "march_bwd": march_backward.launches,
+        "texture_fills": march_forward.texture_fills}
+    # where the host's time goes: the operations and CUDA runtime calls of
+    # most self time on the host (a wait for the device shows as the self
+    # time of the runtime call that waits), ms and calls per step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one_step()
+    entries = prof.key_averages()
+    top = sorted(entries, key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:10]
+    res[f"{prefix}_host_top"] = [
+        [e.key, e.self_cpu_time_total / 3e3, e.count / 3] for e in top]
+    # and the device's: the entries of most device time of their own
+    top = sorted(entries, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    res[f"{prefix}_device_top"] = [
+        [e.key, e.self_device_time_total / 3e3, e.count / 3] for e in top
+        if e.self_device_time_total > 0]
+    return res
+
+
+def config5_depth_step(tf, iters: int) -> dict:
+    """The ``step_config5_depth_*`` times of the module docstring: the
+    depth-sharded train step in one process, with the ``tf`` as truth."""
+    from volumetric_renderer_torch.data.volume import Volume
+    from volumetric_renderer_torch.parallel.depth import (
+        dominant_axis, make_depth_sharded_renderer, split_rows,
+    )
+    from volumetric_renderer_torch.parallel.train import (
+        init_depth_state, make_depth_train_step,
+    )
+    from volumetric_renderer_torch.scene.camera import OrbitCamera
+    from volumetric_renderer_torch.utils.config import RenderSettings
+
+    dev = tf.device
+    vol = Volume.synthetic_sphere(512).as_torch(dev)
+    settings = RenderSettings(height=1080, width=1920, step_size=1.8 / 512,
+                              early_termination=False)
+    yaws = np.concatenate([np.linspace(-40.0, 40.0, 4),
+                           np.linspace(140.0, 220.0, 4)])
+    cams = [OrbitCamera.from_angles(float(a), 20.0) for a in yaws]
+    axis = dominant_axis(cams)
+    fixed = dict(vol=split_rows(vol, axis), tf=tf, dmin=vol.min(),
+                 dmax=vol.max(), smin=torch.zeros(3, device=dev),
+                 smax=torch.ones(3, device=dev))
+    render_fn = make_depth_sharded_renderer(None, settings,
+                                            vol_shape=vol.shape, axis=axis)
+    with torch.no_grad():
+        targets = torch.stack([
+            render_fn(fixed["vol"], tf, c, fixed["dmin"], fixed["dmax"],
+                      fixed["smin"], fixed["smax"]) for c in cams])
+    step = make_depth_train_step(settings, optimize_vol=True,
+                                 optimize_tf=False, vol_shape=vol.shape,
+                                 axis=axis)
+    state = [init_depth_state({"vol": torch.full_like(vol, 0.3)},
+                              lambda p: torch.optim.Adam(p, lr=5e-2),
+                              axis=axis)]
+    del vol
+
+    def one_step():
+        state[0], loss = step(state[0], fixed, cams, targets)
+        float(loss)
+
+    res = step_fields("step_config5_depth", one_step, iters)
+    res["step_config5_depth_views"] = len(cams)
+    res["step_config5_depth_axis"] = axis
+    return res
+
+
+def config5_apps(res: dict, smi: str) -> dict:
+    """``--what app5``: the ``app_step_config5_{depth,pixels}_8views_ms``
+    times of the module docstring in the process group that ``torchrun``
+    starts (one process per card), or in one process without it; rank 0
+    prints them."""
+    import torch.distributed as dist
+
+    from volumetric_renderer_torch.apps import optimize
+    from volumetric_renderer_torch.parallel.distributed import (
+        init_distributed,
+    )
+
+    init_distributed()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    res.update(world=world, nvidia_smi_all=smi)
+    for par in ("depth", "pixels"):
+        c5 = ["invert", "--grid", "512", "--size", "1920x1080",
+              "--march-steps", "512", "--views", "8", "--device", "cuda",
+              "--parallel", par]
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stderr(null):
+            optimize.main(c5 + ["--steps-opt", "1"])
+            run = optimize.main(c5 + ["--steps-opt", "4"])
+        res[f"app_step_config5_{par}_8views_ms"] = \
+            1e3 * run["train_s"] / len(run["losses"])
+        res[f"app_config5_{par}_8views_losses"] = run["losses"]
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(res), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return res
+
+
 def config4_step(vol, tf, iters: int) -> dict:
     """The ``step_config4_*`` and ``k*_config4_stacked_ms`` times of the
     module docstring, on the 256^3 grid ``vol`` and the TF ``tf``."""
@@ -162,30 +312,7 @@ def config4_step(vol, tf, iters: int) -> dict:
         state[0], loss = step(state[0], fixed, cams, targets)
         float(loss)
 
-    res = {"step_config4_ms": cuda_ms(one_step, iters)}
-    _, n, per_step, _ = device_ms(one_step, iters, "")
-    res["step_config4_device_ms"] = per_step
-    res["step_config4_device_ops"] = n / iters
-    torch.cuda.synchronize()
-    march_forward.launches = march_backward.launches = 0
-    march_forward.texture_fills = 0
-    one_step()
-    res["step_config4_launches"] = {
-        "march_fwd": march_forward.launches,
-        "march_bwd": march_backward.launches,
-        "texture_fills": march_forward.texture_fills}
-    # where the host's time goes: the operations and CUDA runtime calls of
-    # most self time on the host (a wait for the device shows as the self
-    # time of the runtime call that waits), ms and calls per step
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            one_step()
-    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                 reverse=True)[:10]
-    res["step_config4_host_top"] = [
-        [e.key, e.self_cpu_time_total / 3e3, e.count / 3] for e in top]
+    res = step_fields("step_config4", one_step, iters)
 
     # the step's rays, view by view: each view's tile-cyclic block, stacked
     gh, gw, pack, _, _ = make_layout("tile-cyclic", 256, 256, 1)
@@ -214,7 +341,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--what", choices=["k1", "k2", "all"], default="all")
+    ap.add_argument("--what", choices=["k1", "k2", "all", "app5"],
+                    default="all")
     ap.add_argument("--cases", default="",
                     help="with --what k1: a comma-separated subset of the "
                     "cases (default: all)")
@@ -243,10 +371,12 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.splitlines()[0]
+                         text=True, timeout=60).stdout
     res = dict(label=args.label, package=os.path.dirname(pkg.__file__),
-               gpu=torch.cuda.get_device_name(0), nvidia_smi=smi,
-               iters=args.iters)
+               gpu=torch.cuda.get_device_name(0),
+               nvidia_smi=smi.splitlines()[0], iters=args.iters)
+    if args.what == "app5":
+        return config5_apps(res, smi)
     ramp = Gradient.grayscale_ramp().discretize(256)
     ramp[:, 3] = np.linspace(0.0, 1.0, 256, dtype=np.float32) ** 2
     tf = torch.as_tensor(ramp, device=dev)
@@ -356,6 +486,7 @@ def main(argv=None) -> dict:
 
     if args.what == "all":
         res.update(config4_step(vol, tf, args.iters))
+        res.update(config5_depth_step(tf, args.iters))
         inv = ["invert", "--grid", "256", "--size", "256x256",
                "--march-steps", "512", "--views", "32", "--device", "cuda"]
         with open(os.devnull, "w") as null, contextlib.redirect_stderr(null):

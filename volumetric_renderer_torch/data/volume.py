@@ -39,8 +39,16 @@ class Volume:
             raise ValueError(f"volume must be 3-D, got shape {arr.shape}")
         return cls(data=arr, vmin=float(arr.min()), vmax=float(arr.max()))
 
-    def as_torch(self, device="cpu") -> torch.Tensor:
-        """The grid as a contiguous float32 ``(Z, Y, X)`` tensor on ``device``."""
+    def as_torch(self, device="cuda") -> torch.Tensor:
+        """The grid as a contiguous float32 ``(Z, Y, X)`` tensor on ``device``:
+        the CUDA card unless the caller asks for another (``"cpu"``), as the
+        JAX package's ``as_jax()`` places it on the accelerator.  Raises
+        where a CUDA device is asked for and there is none."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Volume.as_torch: no CUDA device for "
+                               f"{device}; pass device='cpu' for a CPU "
+                               "tensor")
         return torch.from_numpy(np.ascontiguousarray(self.data)).to(device)
 
     # -- synthetic volumes for tests/benchmarks ----------------------------

@@ -24,6 +24,10 @@ the partials fold in march order.  On each rank:
    >= 0, descending where it is < 0.  A ray-major kernel has no slab
    orientation, so views may march along any axis, either way.
 
+A camera of V views takes each step once for all of them: its rays are
+stacked along rows, so a train step makes one halo exchange, one K1 and
+one K2 launch and one ``all_gather`` whatever V is.
+
 Backward: the grid gradient stays on its rank, and the halo row's gradient
 goes back to rank + 1's first body row (the transpose of the halo
 exchange); the TF and window gradients are summed across the ranks once.
@@ -41,7 +45,11 @@ import torch.distributed as dist
 
 from volumetric_renderer_torch.core.marcher import frame_inputs
 from volumetric_renderer_torch.parallel.mesh import group_info
-from volumetric_renderer_torch.parallel.render import gather_blocks, sum_across
+from volumetric_renderer_torch.parallel.render import (
+    gather_blocks,
+    march_views,
+    sum_across,
+)
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils import quaternion as quat
 from volumetric_renderer_torch.utils.config import RenderSettings
@@ -108,7 +116,10 @@ def split_rows(vol: torch.Tensor, axis: int, group=None) -> torch.Tensor:
     """This rank's body rows of the whole grid ``vol`` (a contiguous copy)."""
     _, rank, world = group_info(group)
     body = body_rows(vol.shape, axis, world)
-    return vol.narrow(axis, rank * body, body).contiguous()
+    # a copy even where the rows are contiguous already (axis 0, a world
+    # of one): the caller may update it in place
+    return vol.narrow(axis, rank * body, body).clone(
+        memory_format=torch.contiguous_format)
 
 
 def gather_rows(local: torch.Tensor, axis: int, group=None, dst: int = 0):
@@ -207,6 +218,16 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
     ``"kernel"``.  The TF and window gradients are summed across the ranks
     once, in the backward, unless ``reduce_grads=False`` leaves that to the
     caller; the grid gradient stays with its rows.
+
+    A camera of V views (a leading axis on its fields, ``scene.camera.
+    OrbitCamera``) renders all of them in one call and returns ``(V, H, W,
+    4)``: one ray setup, one halo exchange (one chunk tensor, so one copy
+    into K1's texture), the V views' rays stacked along rows into one
+    ``(V*H, W)`` image marched once with a per-ray origin
+    (``parallel.render.march_views``: the fewest groups past
+    ``kernels.march.MAX_ROWS``), one ``all_gather`` of the partials and
+    the per-ray fold over the stacked image, whose rays may march either
+    way along ``axis``.
     """
     vol_shape = tuple(int(v) for v in vol_shape)
     group, rank, world = group_info(group)
@@ -214,6 +235,7 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
     own = (axis, rank * body, body, vol_shape[axis])
     local_shape = tuple(body if i == axis else d
                         for i, d in enumerate(vol_shape))
+    h, w = settings.height, settings.width
 
     def render_fn(vol_local, tf, camera, dmin, dmax, smin, smax):
         if tuple(vol_local.shape) != local_shape:
@@ -226,14 +248,18 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
         march = make_marcher(select_method(method, vol_local), settings, own)
         origin, dirs, dmin, dmax, smin, smax = frame_inputs(
             vol_local, camera, settings, dmin, dmax, smin, smax)
+        views = tuple(dirs.shape[:-3])          # () for one camera, or (V,)
         if world > 1:
             chunk = _HaloExchange.apply(vol_local, axis, group, rank, world)
         else:
             chunk = chunk_of(vol_local, 0, body, axis)   # a zero halo row
         if reduce_grads:
             tf, dmin, dmax = (sum_across(x, group) for x in (tf, dmin, dmax))
-        partial = march(chunk, tf, origin, dirs, dmin, dmax, smin, smax)
+        rays = dirs.reshape((-1, h, w, 3))
+        partial = march_views(march, chunk, tf, origin, rays, dmin, dmax,
+                              smin, smax)               # (V*H, W, 4)
         parts = gather_blocks(partial[None], group)
-        return fold_partials(parts, dirs, axis)
+        img = fold_partials(parts, rays.reshape((-1, w, 3)), axis)
+        return img.reshape(views + (h, w, 4))
 
     return render_fn

@@ -89,6 +89,26 @@ def all_reduce_grads(tensors, group=None) -> None:
             dist.all_reduce(t.grad, group=group)
 
 
+def march_views(march, vol, tf, origin, rays, dmin, dmax, smin, smax):
+    """March V views' rays ``rays`` ``(V, rows, W, 3)`` from their eyes
+    ``origin`` (``(V, 3)``, or ``(3,)`` for one view) stacked along rows
+    into one ``(V*rows, W)`` image of rays, with a per-ray origin; returns
+    ``(V*rows, W, 4)``.  ``march`` is a marcher of ``render.api.
+    make_marcher``.  Where the stacked rows pass what one kernel launch
+    takes (``kernels.march.MAX_ROWS``), the views are marched in the
+    fewest groups that fit, one ``march`` call each."""
+    n_views, rows, w = rays.shape[:3]
+    origin = origin.reshape((-1, 1, 1, 3))
+    per = max(1, kernel_march.MAX_ROWS // rows)
+    parts = [
+        march(vol, tf,
+              origin[i:i + per].expand(-1, rows, 1, 3).reshape(-1, 1, 3),
+              rays[i:i + per].reshape(-1, w, 3).contiguous(), dmin, dmax,
+              smin, smax)
+        for i in range(0, n_views, per)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def make_sharded_renderer(group, settings: RenderSettings,
                           method: str = "auto", *,
                           row_layout: str = "contiguous",
@@ -142,20 +162,11 @@ def make_sharded_renderer(group, settings: RenderSettings,
             dirs = torch.where(valid.to(dev)[..., None, None] > 0.0, dirs,
                                up)
         block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
-        origin = origin.reshape((-1, 1, 1, 3))      # one per view
         if reduce_grads:
             vol, tf, dmin, dmax = (sum_across(x, group)
                                    for x in (vol, tf, dmin, dmax))
-        # the fewest launches whose stacked rows the kernels take
-        per = max(1, kernel_march.MAX_ROWS // rows)
-        parts = [
-            march(vol, tf,
-                  origin[i:i + per].expand(-1, rows, 1, 3).reshape(-1, 1, 3),
-                  block[i:i + per].reshape(-1, gw, 3).contiguous(), dmin,
-                  dmax, smin, smax)
-            for i in range(0, block.shape[0], per)]
-        img = parts[0] if len(parts) == 1 else torch.cat(parts)
-        img = img.reshape((-1, rows, gw, 4))        # (V, rows, gw, 4)
+        img = march_views(march, vol, tf, origin, block, dmin, dmax, smin,
+                          smax).reshape((-1, rows, gw, 4))  # (V, rows, gw, 4)
         if permuted_output:
             return img.reshape(views + (rows, gw, 4))
         img = unpack(gather_blocks(img.permute(1, 2, 0, 3), group))

@@ -55,8 +55,13 @@ def init_state(params: dict, make_optimizer: Callable) -> TrainState:
     """A state over copies of ``params`` (detached, requiring grad), with
     ``make_optimizer(list_of_tensors)`` as its optimizer, e.g.
     ``lambda p: torch.optim.Adam(p, lr=5e-2)``."""
-    params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in params.items()}
+    return _state_over({k: v.detach().clone() for k, v in params.items()},
+                       make_optimizer)
+
+
+def _state_over(params: dict, make_optimizer: Callable) -> TrainState:
+    """A state over ``params`` themselves (copies the caller made)."""
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
     return TrainState(params, make_optimizer(list(params.values())), 0)
 
 
@@ -165,11 +170,17 @@ def make_depth_train_step(settings: RenderSettings, *, optimize_vol: bool,
     (``parallel.depth.global_window``).
 
     The same contract and loss as :func:`make_train_step`, over the whole
-    folded image, which every rank holds.  After the views the TF gradient
-    is summed across the ranks (once); the grid gradient stays with its
-    rows.  Views may look along any axis, in either direction.
+    folded image, which every rank holds: ``sum((img - targets)**2) /
+    (V*H*W*4)``.  All the views are rendered in one call of the depth-
+    sharded renderer (a batched camera): one ray setup, one halo exchange,
+    and one K1 and one K2 launch and one copy into K1's texture on a CUDA
+    grid, or the fewest launches the launch grid allows
+    (``kernels.march.MAX_ROWS``); then one ``backward``.  After it the TF
+    gradient is summed across the ranks (once); the grid gradient stays
+    with its rows.  Views may look along any axis, in either direction.
     """
     group, _, _ = group_info(group)
+    h, w = settings.height, settings.width
     render_fn = make_depth_sharded_renderer(group, settings,
                                             vol_shape=vol_shape, axis=axis,
                                             method=method, reduce_grads=False)
@@ -178,20 +189,18 @@ def make_depth_train_step(settings: RenderSettings, *, optimize_vol: bool,
         params, opt = state.params, state.optimizer
         vol = params["vol"] if optimize_vol else fixed["vol"]
         tf = params["tf"] if optimize_tf else fixed["tf"]
-        views = camera_views(cameras)
+        cams = stack_cameras(cameras)
+        n_views = cams.orientation.shape[0]
         opt.zero_grad(set_to_none=True)
-        total = torch.zeros((), dtype=torch.float32, device=targets.device)
-        for i, cam in enumerate(views):
-            img = render_fn(vol, tf, cam, fixed["dmin"], fixed["dmax"],
-                            fixed["smin"], fixed["smax"])
-            loss_v = torch.mean((img - targets[i]) ** 2)
-            (loss_v / len(views)).backward()
-            total = total + loss_v.detach()
+        img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
+                        fixed["smin"], fixed["smax"])       # (V, H, W, 4)
+        loss = torch.sum((img - targets) ** 2) / float(n_views * h * w * 4)
+        loss.backward()
         if optimize_tf:
             all_reduce_grads([params["tf"]], group)
         opt.step()
         _clamp(params, optimize_vol, optimize_tf)
-        return state._replace(step=state.step + 1), total / len(views)
+        return state._replace(step=state.step + 1), loss.detach()
 
     return train_step
 
@@ -200,7 +209,7 @@ def init_depth_state(params: dict, make_optimizer: Callable, *, axis: int,
                      group=None) -> TrainState:
     """:func:`init_state` with the whole grid ``params["vol"]`` cut to this
     rank's body rows along ``axis``, so its Adam moments are that size
-    too."""
-    if "vol" in params:
-        params = dict(params, vol=split_rows(params["vol"], axis, group))
-    return init_state(params, make_optimizer)
+    too.  The grid is copied once, by ``split_rows``."""
+    return _state_over({k: split_rows(v.detach(), axis, group) if k == "vol"
+                        else v.detach().clone() for k, v in params.items()},
+                       make_optimizer)

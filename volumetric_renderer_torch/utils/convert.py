@@ -15,10 +15,18 @@ from volumetric_renderer_torch.scene.camera import OrbitCamera
 
 
 def from_reference_arrays(vol, tf_table, center, orientation, radius, *,
-                          device="cpu"):
+                          device="cuda"):
     """``(vol_t, tf_t, OrbitCamera)`` on ``device`` from NumPy arrays: grid
     ``(Z, Y, X)``, TF ``(N, 4)``, camera center ``(3,)``, orientation
-    ``(4,)`` as ``[w, x, y, z]`` and radius ``()``, all cast to float32."""
+    ``(4,)`` as ``[w, x, y, z]`` and radius ``()``, all cast to float32.
+
+    ``device`` is the CUDA card unless the caller asks for another
+    (``"cpu"``); where a CUDA device is asked for and there is none this
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"from_reference_arrays: no CUDA device for "
+                           f"{device}; pass device='cpu' for CPU tensors")
 
     def f32(x):
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
