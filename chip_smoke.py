@@ -24,7 +24,14 @@ two opposing arcs) is held against a loop of one march per view built
 here.  It also holds K1 and K2 against their plain versions on one
 config-4 view and on both steps' stacked rays, launches both kernels under
 ``torch.cuda.set_sync_debug_mode("error")``, and computes each kernel's
-bound from the steps its inputs make it sample.  Each phase prints one JSON
+bound from the steps its inputs make it sample.  The phase
+``no_host_waits`` runs a second call of each main path (the reference
+frame and config 2's through ``render``, the config-3, config-4 and
+config-5 pixel-sharded train steps, and the config-5 depth-sharded one in
+the one-rank NCCL group; host cameras, Adam) under sync-debug mode
+"error", so that a wait for the card fails the run, and counts each
+call's synchronizing CUDA runtime calls with the profiler (they must be
+0).  Each phase prints one JSON
 object per line; the line before the last lists the kernels (times, bounds,
 launches per training step); the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the run exits non-zero; without a
@@ -181,7 +188,7 @@ def main() -> int:
         viewer,
     )
     from volumetric_renderer_torch.apps.time_kernels import (
-        cuda_ms, device_ms,
+        cuda_ms, device_ms, host_waits,
     )
     from volumetric_renderer_torch.core.marcher import (
         frame_inputs, prepare_rays,
@@ -942,7 +949,104 @@ def main() -> int:
     check(ok5d_k, f"config-5 depth stacked rays: K2 vs plain {errs5d_k}")
     bwd_small_err = max(bwd_small_err, *errs5d_k.values())
     own_fwd_err = max(own_fwd_err, k1_5d_err)
-    del args5d, out5d, g5d, dirs, hit, vol5, args5
+    del args5d, out5d, g5d, dirs, hit, args5
+
+    # -- 3d''. no host waits: the second call of each main path under
+    # sync-debug mode "error", where a wait for the card raises (the error
+    # is never caught: it fails the run), from host cameras, with Adam as
+    # the optimize app runs it; and each call's synchronizing CUDA runtime
+    # calls counted by the profiler
+    t_phase = time.perf_counter()
+
+    def without_waits(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def adam(p):
+        return torch.optim.Adam(p, lr=5e-2)
+
+    def pixel_step(settings, cams, params, fixed):
+        step = make_train_step(settings, optimize_vol="vol" in params,
+                               optimize_tf="tf" in params,
+                               row_layout="tile-cyclic")
+        with torch.no_grad():
+            targets = torch.stack([render(fixed["vol"], fixed["tf"], c,
+                                          settings) for c in cams])
+        state = [init_state(params, adam)]
+
+        def one():
+            state[0], loss = step(state[0], fixed, cams, targets)
+            return loss
+
+        return one
+
+    s_ref = RenderSettings(height=FRAME_H, width=FRAME_W,
+                           step_size=1.8 / FRAME_STEPS)            # ET on
+    s3 = s_ref.replace(early_termination=False)       # as optimize.py
+    cam_ref = OrbitCamera.from_angles(30.0, 20.0)
+    vol2nw = models.head_phantom(128).as_torch(dev)       # config 2
+    s2_nw = RenderSettings(height=512, width=512, step_size=1.8 / 360)
+    tf2nw = torch.as_tensor(ablation.bone_tf(NTF), device=dev)
+    fixed256 = dict(window4, vol=vol, tf=tf_ramp)
+    fixed512 = dict(window5d, vol=vol5, tf=tf_ramp)
+    state5dnw = [init_depth_state({"vol": torch.full_like(vol5, 0.3)}, adam,
+                                  axis=axis5d)]
+    with torch.no_grad():
+        targets5dnw = torch.stack([per_view5d(vol5, tf_ramp, c,
+                                              *window5d.values())
+                                   for c in cams5d])
+    step5dnw = make_depth_train_step(s5, optimize_vol=True,
+                                     optimize_tf=False, vol_shape=vol5.shape,
+                                     axis=axis5d)
+    fixed5dnw = dict(window5d, vol=vol5, tf=tf_ramp)
+
+    def depth_step():
+        state5dnw[0], loss = step5dnw(state5dnw[0], fixed5dnw, cams5d,
+                                      targets5dnw)
+        return loss
+
+    nw_paths = {
+        "reference_frame": (lambda: render(vol, tf_ramp, cam_ref, s_ref),
+                            False),
+        "config2_frame": (lambda: render(vol2nw, tf2nw, cam_ref, s2_nw),
+                          False),
+        "config3_step": (pixel_step(s3, [cam_ref],
+                                    {"tf": tf_ramp * 0.5}, fixed256), True),
+        "config4_step": (pixel_step(s4, cams4,
+                                    {"vol": torch.full_like(vol, 0.3)},
+                                    fixed256), True),
+        "config5_pixels_step": (pixel_step(
+            s5, [OrbitCamera.from_angles(float(a), 20.0)
+                       for a in (0.0, 180.0)],
+            {"vol": torch.full_like(vol5, 0.3)}, fixed512), True),
+        "config5_depth_step": (depth_step, True),
+    }
+    no_waits = {}
+    for name, (fn, trains) in nw_paths.items():
+        fn()                                  # builds, allocates, warms up
+        out, n = counted(lambda: without_waits(fn))
+        no_waits[name] = dict(
+            host_waits_per_call=host_waits(fn), launches=n,
+            ms=cuda_ms(fn, 5), finite=bool(torch.isfinite(out).all()))
+        for k in main_launches:
+            main_launches[k] += n[k]
+    emit(phase="no_host_waits", sync_debug_mode="error", gpu=gpu,
+         nvidia_smi=smi, cameras="on the host", optimizer="Adam",
+         world=dist.get_world_size(), backend=dist.get_backend(),
+         paths=no_waits, seconds=time.perf_counter() - t_phase)
+    for name, r in no_waits.items():
+        trains = nw_paths[name][1]
+        check(r["finite"], f"no_host_waits {name}: non-finite output")
+        check(r["launches"]["march_fwd"] == 1 and
+              r["launches"]["march_bwd"] == int(trains),
+              f"no_host_waits {name}: launches {r['launches']}")
+        check(r["host_waits_per_call"] == 0, f"no_host_waits {name}: "
+              f"{r['host_waits_per_call']} synchronizing calls a call")
+    del (nw_paths, state5dnw, targets5dnw, fixed5dnw, fixed256, fixed512,
+         vol2nw, vol5)
 
     # -- 3e. apps.benchmark: devices=1 in this one-rank NCCL group --------
     t_phase = time.perf_counter()

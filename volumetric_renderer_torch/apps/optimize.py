@@ -63,6 +63,7 @@ from volumetric_renderer_torch.parallel.train import (
     init_state,
     make_depth_train_step,
     make_train_step,
+    stack_cameras,
 )
 from volumetric_renderer_torch.render.api import resolve_method
 from volumetric_renderer_torch.scene.camera import OrbitCamera
@@ -238,10 +239,12 @@ def _run(args, device) -> dict:
             say(f"resumed from {ck} at step {start}")
 
     rays_per_step = args.views * h * w
+    # the views stacked and put on the device once, not on every step
+    views = stack_cameras(cams).to(device)
     losses = []
     for i in range(start, args.steps_opt):
         with timers.phase("train_step"):
-            state, loss = step_fn(state, fixed, cams, targets)
+            state, loss = step_fn(state, fixed, views, targets)
             loss = float(loss)
         losses.append(loss)
         rate = (rays_per_step / timers.totals["train_step"]

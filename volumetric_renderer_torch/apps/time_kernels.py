@@ -25,7 +25,9 @@ and with ``--what all`` also ``k1_config3_ms``, ``k1_config4_view_ms``,
 ``frame_ref_ms`` (the reference frame,
 early termination on, through ``render(method="kernel")``: ray setup and
 K1), ``step_config3_ms`` (``render(method="kernel")`` and the backward of a
-pixel loss at config 3),
+pixel loss at config 3), each with its ``_host_waits`` beside it (the
+synchronizing CUDA runtime calls a call makes, :func:`host_waits`; the
+camera is a host one),
 ``app_step_config4_ms`` (the mean step wall time of ``apps.optimize
 invert`` at config 4: 32 views at 256x256, 5 steps after a 1-step run),
 ``app_step_config5_depth_ms`` (the same for config 5 under ``--parallel
@@ -42,15 +44,20 @@ of the ``torch.profiler``'s device entries, kernels, copies and fills, but
 host-device copies), ``step_config4_launches`` (K1 and K2 launches and K1
 texture copies per step), ``step_config4_host_top`` and
 ``step_config4_device_top`` (the 10 host and device entries of most self
-time per step, ``[name, ms, calls]``), and
-``k1_config4_stacked_ms``,
+time per step, ``[name, ms, calls]``), ``step_config4_host_waits``
+(synchronizing CUDA runtime calls per step, the loss read included,
+:func:`host_waits`), and ``k1_config4_stacked_ms``,
 ``k2_config4_stacked_ms`` (K1 and K2 on the 32 views' tile-cyclic rays
 stacked along rows, built view by view, the step's single launch of each);
 and the same ``step_config5_depth_*`` fields for the depth-sharded step
 (``parallel.train.make_depth_train_step``) in one process: 8 views of the
 512^3 sphere at 1920x1080 on the optimize app's two opposing yaw arcs
 (-40..40 and 140..220 degrees, pitch 20), 512 steps, the grid split along
-their dominant axis, Adam, the loss read on the host every step.
+their dominant axis, Adam, the loss read on the host every step.  Each
+of the two steps also gives its ``_fixed_*`` fields: the same, with the
+grid put back before every step to the one the trajectory had reached
+(:func:`fixed_grid_fields`), so that the step's time and its device time
+come from steps that do the same work.
 
 ``--what app5`` gives ``app_step_config5_depth_8views_ms`` and
 ``app_step_config5_pixels_8views_ms``: the mean step wall time of
@@ -147,14 +154,48 @@ def device_ms(fn, iters: int, kernel: str):
             sorted({e.name for e in hits}))
 
 
+#: The CUDA runtime calls that make the host wait for the device.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def host_waits(fn, calls: int = 3):
+    """Synchronizing CUDA runtime calls (:data:`SYNC_CALLS`) per call of
+    ``fn``, in a ``torch.profiler`` run of ``calls`` calls after one
+    warm-up: those made inside ``fn``, not the profiler's own.  ``None``
+    where the profiler saw no runtime call inside ``fn`` at all (a
+    profiler run now and then records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                with record_function("host_waits_call"):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "host_waits_call"
+                 and e.device_type == DeviceType.CPU]
+        inside = [e.name for e in events if e.name.startswith("cuda")
+                  and any(a <= e.time_range.start <= b for a, b in spans)]
+        if inside:
+            return sum(name in SYNC_CALLS for name in inside) / calls
+    return None
+
+
 def step_fields(prefix: str, one_step, iters: int) -> dict:
     """``<prefix>_ms`` (CUDA events around ``one_step``), ``_device_ms``
     and ``_device_ops`` (per step, the device time and the count of the
     ``torch.profiler``'s device entries but host-device copies),
     ``_launches`` (K1 and K2 launches and K1 texture copies per step),
     ``_host_top`` (the 10 host entries of most self time per step,
-    ``[name, ms, calls]``) and ``_device_top`` (the same for the device
-    time) of a training step ``one_step``."""
+    ``[name, ms, calls]``), ``_device_top`` (the same for the device
+    time) and ``_host_waits`` (synchronizing runtime calls per step,
+    :func:`host_waits`) of a training step ``one_step``."""
     from torch.profiler import ProfilerActivity, profile
 
     from volumetric_renderer_torch.kernels.march import (
@@ -191,7 +232,26 @@ def step_fields(prefix: str, one_step, iters: int) -> dict:
     res[f"{prefix}_device_top"] = [
         [e.key, e.self_device_time_total / 3e3, e.count / 3] for e in top
         if e.self_device_time_total > 0]
+    res[f"{prefix}_host_waits"] = host_waits(one_step)
     return res
+
+
+def fixed_grid_fields(prefix: str, state: list, one_step, iters: int):
+    """:func:`step_fields` of ``one_step`` with the grid put back before
+    each step (``<prefix>_fixed_*``): on the training trajectory K2's time
+    changes with the grid, so the timed steps and the profiled ones of
+    :func:`step_fields` do different work; here every step does the same
+    (that of the grid the trajectory has reached), and the copy back, one
+    device-to-device copy of the grid, is timed with the step."""
+    params = state[0].params
+    snapshot = params["vol"].detach().clone()
+
+    def fixed_step():
+        with torch.no_grad():
+            params["vol"].copy_(snapshot)
+        one_step()
+
+    return step_fields(f"{prefix}_fixed", fixed_step, iters)
 
 
 def config5_depth_step(tf, iters: int) -> dict:
@@ -237,6 +297,8 @@ def config5_depth_step(tf, iters: int) -> dict:
         float(loss)
 
     res = step_fields("step_config5_depth", one_step, iters)
+    res.update(fixed_grid_fields("step_config5_depth", state, one_step,
+                                 iters))
     res["step_config5_depth_views"] = len(cams)
     res["step_config5_depth_axis"] = axis
     return res
@@ -313,6 +375,7 @@ def config4_step(vol, tf, iters: int) -> dict:
         float(loss)
 
     res = step_fields("step_config4", one_step, iters)
+    res.update(fixed_grid_fields("step_config4", state, one_step, iters))
 
     # the step's rays, view by view: each view's tile-cyclic block, stacked
     gh, gw, pack, _, _ = make_layout("tile-cyclic", 256, 256, 1)
@@ -462,10 +525,14 @@ def main(argv=None) -> dict:
                 (img * g).sum().backward()
 
             res["step_config3_ms"] = cuda_ms(kernel_step, args.iters)
+            res["step_config3_host_waits"] = host_waits(kernel_step)
             et_on = RenderSettings(height=h, width=w, step_size=1.8 / 512)
-            res["frame_ref_ms"] = cuda_ms(
-                lambda: render(vol, tf, cam, et_on, method="kernel"),
-                args.iters)
+
+            def frame():
+                return render(vol, tf, cam, et_on, method="kernel")
+
+            res["frame_ref_ms"] = cuda_ms(frame, args.iters)
+            res["frame_ref_host_waits"] = host_waits(frame)
         del kargs, out, g
 
     if args.what in ("k2", "all"):

@@ -38,6 +38,7 @@ from volumetric_renderer_torch.core.sampling import (
 from volumetric_renderer_torch.scene.camera import OrbitCamera, ray_grid
 from volumetric_renderer_torch.transfer.texture import sample_tf
 from volumetric_renderer_torch.utils.config import RenderSettings
+from volumetric_renderer_torch.utils.device import as_device, constant
 
 
 def step_offsets(num_steps: int, step_size: float, dtype,
@@ -82,16 +83,23 @@ def frame_inputs(vol, camera, settings, density_min=None, density_max=None,
     (``offscreen_pass.cpp:55-90``) maps to [0,1]^3, tex = world + 0.5.  A
     camera of V views (``scene.camera.ray_grid``) gives ``origin`` (V, 3)
     and ``dirs`` (V, H, W, 3).
+
+    Nothing here makes the host wait for the card: the default slicing
+    window is a constant kept on the device, values already there are
+    used as they are, and a host camera or host values reach it in one
+    asynchronous copy each (``utils.device``).
     """
     dev = vol.device
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return as_device(x, dev, torch.float32)
 
     density_min = vol.min() if density_min is None else density_min
     density_max = vol.max() if density_max is None else density_max
-    slice_min = (0.0, 0.0, 0.0) if slice_min is None else slice_min
-    slice_max = (1.0, 1.0, 1.0) if slice_max is None else slice_max
+    slice_min = constant((0.0, 0.0, 0.0), dev) if slice_min is None \
+        else slice_min
+    slice_max = constant((1.0, 1.0, 1.0), dev) if slice_max is None \
+        else slice_max
     origin_world, dirs = ray_grid(
         camera.to(dev), settings.height, settings.width,
         settings.fov_y_degrees, settings.near, settings.far,

@@ -34,6 +34,7 @@ from volumetric_renderer_torch.core.fused import (
 )
 from volumetric_renderer_torch.core.sampling import check_own
 from volumetric_renderer_torch.kernels import _build
+from volumetric_renderer_torch.utils.device import to_device
 
 #: The plain versions: same inputs, same operations in the same order.
 march_forward_plain = march_prepared
@@ -172,7 +173,10 @@ def _check_kernel_inputs(fn: str, tensors: dict, smem_per_texel: int,
 def _window(fn: str, device, dmin, inv_window, smin, smax) -> torch.Tensor:
     """``[dmin, inv_w, *smin, *smax]`` as one contiguous ``(8,)`` float32
     tensor on ``device``, which the kernel reads there: values already on
-    the card never pass through the host (no sync)."""
+    the card are used as they are and never pass through the host, and
+    host values (numbers or host tensors) reach it in one asynchronous
+    copy from pinned memory (``utils.device.to_device``), so the host never
+    waits for the card here."""
     parts = []
     for key, x, n in (("dmin", dmin, 1), ("inv_window", inv_window, 1),
                       ("smin", smin, 3), ("smax", smax, 3)):
@@ -180,8 +184,8 @@ def _window(fn: str, device, dmin, inv_window, smin, smax) -> torch.Tensor:
         if x.numel() != n:
             raise ValueError(f"{fn}: {key} must hold {n} value(s), got "
                              f"{x.numel()}")
-        parts.append(x.to(device, non_blocking=True))
-    return torch.cat(parts)
+        parts.append(x)
+    return torch.cat(to_device(parts, device))
 
 
 #: :func:`_one_wave` for each ``(device index, TF texels)`` queried.

@@ -54,11 +54,14 @@ def _pad_image(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return img
 
 
-def _take(x: torch.Tensor, index: np.ndarray) -> torch.Tensor:
-    return x[torch.as_tensor(index, device=x.device)]
+def _take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]``, the index copied to ``x``'s device first where it lies
+    elsewhere (a layout made for another device)."""
+    return x[index.to(x.device)]
 
 
-def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
+def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16,
+                device=None):
     """Pixel-to-rank distribution for the sharded renderer.
 
     Returns ``(gh, gw, pack, unpack, valid)``:
@@ -69,7 +72,13 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
       into shard order, zero-filled on padding; differentiable.
     * ``unpack(x)`` — the exact inverse, ``(gh, gw, C...) -> (h, w, C...)``.
     * ``valid`` — ``(gh, gw)`` float32 mask of true pixels (0 on padding),
-      on the CPU, for loss masking and for making padded rays inert.
+      for loss masking and for making padded rays inert.
+
+    ``valid`` and the index tensors that ``pack`` and ``unpack`` take lie on
+    ``device`` (default: the CPU), made there once: a layout made for the
+    device of the images it packs copies nothing from the host per call
+    (one made for another device copies its index to theirs on every
+    call, which on a CUDA device makes the host wait).
 
     Layouts:
 
@@ -83,6 +92,7 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
       tile order (``np.random.Generator(np.random.PCG64(0))``), which breaks
       the stride-n correlation of raster order.
     """
+    device = torch.device("cpu") if device is None else torch.device(device)
     if layout == "contiguous":
         gh = pad_rows(h, n_dev)
 
@@ -94,9 +104,12 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
 
         valid = torch.zeros((gh, w), dtype=torch.float32)
         valid[:h] = 1.0
-        return gh, w, pack, unpack, valid
+        return gh, w, pack, unpack, valid.to(device)
     if layout == "cyclic":
         gh, perm, inv = cyclic_row_layout(h, n_dev, tile)
+        valid = torch.zeros((gh, w), dtype=torch.float32)
+        valid[torch.from_numpy(perm < h)] = 1.0
+        perm, inv = (torch.as_tensor(i, device=device) for i in (perm, inv))
 
         def pack(img):
             return _take(_pad_image(img, gh, img.shape[1]), perm)
@@ -104,9 +117,7 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
         def unpack(x):
             return _take(x, inv)[:h]
 
-        valid = torch.zeros((gh, w), dtype=torch.float32)
-        valid[torch.from_numpy(perm < h)] = 1.0
-        return gh, w, pack, unpack, valid
+        return gh, w, pack, unpack, valid.to(device)
     if layout not in ("tile-cyclic", "tile-shuffle"):
         raise ValueError(f"unknown row_layout {layout!r}")
 
@@ -116,7 +127,8 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
     if layout == "tile-shuffle":
         idx = np.random.Generator(np.random.PCG64(0)).permutation(tp)
     order = np.concatenate([idx[d::n_dev] for d in range(n_dev)])
-    inv_order = np.argsort(order)
+    order, inv_order = (torch.as_tensor(i, device=device)
+                        for i in (order, np.argsort(order)))
 
     def pack(img):
         c = img.shape[2:]
@@ -132,7 +144,7 @@ def make_layout(layout: str, h: int, w: int, n_dev: int, tile: int = 16):
         x = x.reshape((ht, wt, tile, tile) + c).movedim(1, 2)
         return x.reshape((ht * tile, wt * tile) + c)[:h, :w]
 
-    valid = pack(torch.ones((h, w), dtype=torch.float32))
+    valid = pack(torch.ones((h, w), dtype=torch.float32, device=device))
     return tp * tile, tile, pack, unpack, valid
 
 

@@ -31,6 +31,7 @@ from volumetric_renderer_torch.kernels import march as kernel_march
 from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils.config import RenderSettings
+from volumetric_renderer_torch.utils.device import constant, per_device
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -134,6 +135,10 @@ def make_sharded_renderer(group, settings: RenderSettings,
     (``kernels.march.MAX_ROWS``), the views are marched in as few groups
     as fit.
 
+    The layout's tensors and the inert direction are made once per device,
+    on the first call there, so a later call copies nothing from the host
+    and never makes the host wait for the card.
+
     The output is the whole image, gathered and unpacked; with
     ``permuted_output=True`` it is this rank's ``(gh/n, gw, 4)`` block in
     shard order (what the train step's loss takes).  A camera of V views
@@ -145,12 +150,15 @@ def make_sharded_renderer(group, settings: RenderSettings,
     """
     _, rank, world = group_info(group)
     h, w = settings.height, settings.width
-    gh, gw, pack, unpack, valid = make_layout(row_layout, h, w, world)
+    gh, gw = make_layout(row_layout, h, w, world)[:2]
     rows = gh // world
     padded = (gh, gw) != (h, w)
+    layout_on = per_device(
+        lambda dev: make_layout(row_layout, h, w, world, device=dev))
 
     def render_fn(vol, tf, camera, dmin, dmax, smin, smax):
         dev = vol.device
+        _, _, pack, unpack, valid = layout_on(dev)
         march = make_marcher(select_method(method, vol), settings)
         origin, dirs, dmin, dmax, smin, smax = frame_inputs(
             vol, camera, settings, dmin, dmax, smin, smax)
@@ -158,9 +166,8 @@ def make_sharded_renderer(group, settings: RenderSettings,
         # the views ride through the layout as a channel axis: (H, W, V, 3)
         dirs = pack(dirs.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
         if padded:
-            up = torch.tensor([0.0, 0.0, 1.0], device=dev)
-            dirs = torch.where(valid.to(dev)[..., None, None] > 0.0, dirs,
-                               up)
+            dirs = torch.where(valid[..., None, None] > 0.0, dirs,
+                               constant((0.0, 0.0, 1.0), dev))
         block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
         if reduce_grads:
             vol, tf, dmin, dmax = (sum_across(x, group)

@@ -17,6 +17,14 @@ place.
   rank holds its rows of the grid and their Adam moments; the TF and the
   window are replicated.
 
+Once its kernels are built, neither step makes the host wait for the
+card before the caller reads the loss: a host camera reaches the device
+in one asynchronous copy (``scene.camera.OrbitCamera.to``), and the
+layout's tensors, the loss mask and the ray setup's constants are made
+once per device (``utils.device``).  A caller that steps many times
+stacks its cameras and puts them on the device once
+(:func:`stack_cameras`, then ``.to(device)``).
+
 Without a process group both run as a world of one.  ``method="auto"``
 trains through the CUDA kernels on a CUDA grid (K1 forward, K2 backward,
 ``kernels/march.py``) and through the plain re-march (``"fused"``) on the
@@ -43,6 +51,7 @@ from volumetric_renderer_torch.parallel.render import (
 )
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.utils.config import RenderSettings
+from volumetric_renderer_torch.utils.device import per_device
 
 
 class TrainState(NamedTuple):
@@ -128,9 +137,15 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
                                       row_layout=row_layout,
                                       permuted_output=True,
                                       reduce_grads=False)
-    gh, _, pack, _, valid = make_layout(row_layout, h, w, world)
-    rows = gh // world
-    mask = valid[rank * rows:(rank + 1) * rows, :, None]
+    rows = make_layout(row_layout, h, w, world)[0] // world
+
+    def layout(dev):
+        """The layout's ``pack`` and this rank's rows of its mask."""
+        _, _, pack, _, valid = make_layout(row_layout, h, w, world,
+                                           device=dev)
+        return pack, valid[rank * rows:(rank + 1) * rows, :, None]
+
+    layout_on = per_device(layout)
 
     def train_step(state: TrainState, fixed: dict, cameras, targets):
         params, opt = state.params, state.optimizer
@@ -141,10 +156,11 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
         opt.zero_grad(set_to_none=True)
         img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
                         fixed["smin"], fixed["smax"])  # (V, rows, gw, 4)
+        pack, mask = layout_on(img.device)
         # every view's target packed as the renderer packs its rays
         target = pack(targets.permute(1, 2, 0, 3))[rank * rows:
                                                    (rank + 1) * rows]
-        sq = (img - target.permute(2, 0, 1, 3)) ** 2 * mask.to(img.device)
+        sq = (img - target.permute(2, 0, 1, 3)) ** 2 * mask
         loss = torch.sum(sq) / float(h * w * 4) / n_views
         loss.backward()
         total = loss.detach().clone()

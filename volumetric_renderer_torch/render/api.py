@@ -32,6 +32,7 @@ from volumetric_renderer_torch.core.marcher import frame_inputs, march_rays
 from volumetric_renderer_torch.kernels.march import make_kernel_marcher
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.utils.config import RenderSettings
+from volumetric_renderer_torch.utils.device import as_device
 
 METHODS = ("auto", "oracle", "fused", "kernel")
 
@@ -110,13 +111,17 @@ def render(
     into ``vol`` through ``min``/``max``, split evenly among tied voxels,
     as ``jnp.min``/``jnp.max`` do in the JAX package.
 
+    Once its kernels are built, a frame never makes the host wait for the
+    card: host inputs (camera, TF table) reach it in one asynchronous copy
+    each and the constants are kept on the device (``utils.device``).
+
     ``tf_srgb=True`` treats the TF table's RGB as sRGB-encoded and decodes
     it before lookup — byte-for-byte the reference's ``R8G8B8A8_SRGB`` TF
     sampler (``offscreen_pass.cpp:1076``).  The default (False) is this
     framework's linear-throughout convention.
     """
     method = select_method(method, vol)
-    tf_table = torch.as_tensor(tf_table, device=vol.device)
+    tf_table = as_device(tf_table, vol.device)
     if tf_srgb:
         from volumetric_renderer_torch.utils.color import linearize_tf_table
 

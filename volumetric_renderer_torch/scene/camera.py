@@ -21,16 +21,29 @@ All camera maths is float32 at full precision: a TF32 matmul (about three
 decimal digits) would move ray directions far past the renderer's 1e-5 bar.
 So no product here is a matmul: each is written out as broadcast products
 and sums, which no device runs in TF32, and no global flag is touched.
+
+Nothing here makes the host wait for the card: the projection and the
+coordinate conversion are made once per device and settings
+(``_projection_and_conversion``), a host camera reaches the device in one
+asynchronous copy (:meth:`OrbitCamera.to`), and the inverse is taken
+without ``torch.linalg.inv``'s singularity check, which reads the result
+back (a singular matrix gives non-finite rays, as in the JAX package).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 
 from volumetric_renderer_torch.utils import quaternion as quat
+from volumetric_renderer_torch.utils.device import (
+    device_key,
+    outside_inference,
+    to_device,
+)
 
 
 class OrbitCamera:
@@ -66,8 +79,11 @@ class OrbitCamera:
         )
 
     def to(self, device) -> "OrbitCamera":
-        return OrbitCamera(self.center.to(device), self.orientation.to(device),
-                           self.radius.to(device))
+        """The camera on ``device``: fields already there are kept as they
+        are, and a host camera bound for a CUDA device takes one
+        asynchronous copy from pinned memory (``utils.device.to_device``)."""
+        return OrbitCamera(*to_device(
+            (self.center, self.orientation, self.radius), device))
 
     # -- interaction (``camera.cpp:15-34``) --------------------------------
     def rotate(self, delta_xy) -> "OrbitCamera":
@@ -149,11 +165,23 @@ def projection_matrix(camera: OrbitCamera, aspect, fov_y_degrees=40.0,
     """Full clip-from-world matrix ``P * C * V`` as the reference composes it
     (``ubo.proj = perspectiveRH(...) * coordinate_conversion`` then the
     shader does ``proj * view * pos``, ``volume.vert:23``)."""
-    dev = camera.orientation.device
-    fov = torch.deg2rad(torch.tensor(fov_y_degrees, dtype=torch.float32,
-                                     device=dev))
-    p = perspective_rh_zo(fov, aspect, near, far, device=dev)
-    return _mm(_mm(p, coordinate_conversion(dev)), camera.view_matrix())
+    pc = _projection_and_conversion(float(fov_y_degrees), float(aspect),
+                                    float(near), float(far),
+                                    device_key(camera.orientation.device))
+    return _mm(pc, camera.view_matrix())
+
+
+@functools.lru_cache(maxsize=64)
+def _projection_and_conversion(fov_y_degrees, aspect, near, far, device):
+    """``P * C`` of :func:`projection_matrix`, made on the first call for
+    these settings and device and the same tensor after."""
+    def make():
+        fov = torch.deg2rad(torch.tensor(fov_y_degrees, dtype=torch.float32,
+                                         device=device))
+        p = perspective_rh_zo(fov, aspect, near, far, device=device)
+        return _mm(p, coordinate_conversion(device))
+
+    return outside_inference(make)
 
 
 def _mm(a, b):
@@ -177,7 +205,7 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
     dev = camera.orientation.device
     aspect = float(width) / float(height)
     m = projection_matrix(camera, aspect, fov_y_degrees, near, far)
-    m_inv = torch.linalg.inv(m)
+    m_inv = torch.linalg.inv_ex(m).inverse
 
     ys = (2.0 * (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
           / height) - 1.0

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from volumetric_renderer_torch.utils.device import constant
+
 
 def from_axis_angle(axis, angle_rad):
     """glm::angleAxis(angle, axis) — axis must be unit length."""
@@ -36,10 +38,14 @@ def multiply(q1, q2):
 
 
 def rotate_vector(q, v):
-    """q * v * q^-1 — rotate vector v by unit quaternion q."""
+    """q * v * q^-1 — rotate vector v by unit quaternion q.  A ``v`` given
+    as a list or tuple is a constant made once per device."""
     w = q[..., 0, None]
     u = q[..., 1:]
-    v = torch.as_tensor(v, dtype=torch.float32, device=q.device)
+    if isinstance(v, (list, tuple)):
+        v = constant(tuple(float(x) for x in v), q.device)
+    else:
+        v = torch.as_tensor(v, dtype=torch.float32, device=q.device)
     # Rodrigues form: v' = v + 2w (u x v) + 2 u x (u x v)
     uv = torch.linalg.cross(u, v.expand_as(u))
     uuv = torch.linalg.cross(u, uv)
