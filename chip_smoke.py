@@ -14,8 +14,10 @@ views, with checkpoint and resume), and times the kernels against the plain
 versions.  The multi-device path (``parallel/``): both kernels on depth
 chunks (the ownership range ``own``) against their plain versions, a 512^3
 volume folded from 4 depth chunks against the whole-volume frame and its
-gradients, and, in a one-rank NCCL process group, the pixel-sharded
-config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
+gradients, K2's device time on each of those chunks (where it walks only
+the steps the chunk can own) beside K2 on the whole grid, with chunk 1
+against its plain version, and, in a one-rank NCCL process group, the
+pixel-sharded config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
 --parallel pixels|depth`` at that size.  Both train steps march all their
 views at once: config 4 and config 5 under ``--parallel depth`` must make
 one K1 and one K2 launch a step (the depth step one copy into K1's
@@ -131,15 +133,19 @@ def step_grads_close(got, want):
     return ok, bars
 
 
-def sampled_steps(args, march):
+def sampled_steps(args, march, own=None):
     """The steps K1 and K2 sample on these inputs: inside the box and the
-    slicing window, on a hit ray and, with early termination, while
-    T > eps.  The bounds count this work."""
+    slicing window, on a hit ray, on a depth chunk ``own = (axis, start,
+    body, total)`` where the chunk owns the sample (its lower corner along
+    the axis in [start, start + body), from -1 on the first chunk) and,
+    with early termination, while T > eps.  The bounds count this work."""
     from volumetric_renderer_torch.core.fused import ALPHA_EPS
     from volumetric_renderer_torch.core.marcher import step_offsets
     from volumetric_renderer_torch.core.sampling import trilinear_sample
     from volumetric_renderer_torch.transfer.texture import sample_tf
     vol, tf, pos0, dirs, hit, dmin, inv_w, smin, smax = args
+    check(own is None or not march["early_termination"],
+          "sampled_steps: early termination on a chunk is not counted")
     tr = torch.ones(hit.shape, device=hit.device)
     count = torch.zeros((), dtype=torch.int64, device=hit.device)
     offsets = step_offsets(march["num_steps"], march["step_size"],
@@ -148,6 +154,11 @@ def sampled_steps(args, march):
         pos = pos0 + offsets[k] * dirs
         active = (((pos >= 0.0) & (pos <= 1.0)).all(-1)
                   & ((pos < smax) & (pos > smin)).all(-1) & hit)
+        if own is not None:
+            axis, start, body, total = own
+            corner = torch.floor(pos[..., 2 - axis] * total - 0.5)
+            active &= ((corner >= (-1 if start == 0 else start))
+                       & (corner < start + body))
         if march["early_termination"]:
             active = active & (tr > march["termination_eps"])
             t = torch.where(active,
@@ -158,17 +169,18 @@ def sampled_steps(args, march):
     return int(count)
 
 
-def bound(name, args, march):
-    """``(bound_ms, bound_by, work)`` of kernel ``name`` on these inputs:
-    each input read once and each output written once, against the
-    operations of the steps it samples."""
+def bound(name, args, march, own=None):
+    """``(bound_ms, bound_by, work)`` of kernel ``name`` on these inputs
+    (on the depth chunk ``own``, if given): each input read once and each
+    output written once, against the operations of the steps it
+    samples."""
     vol, tf, pos0, dirs, hit = args[:5]
     hw = hit.numel()
     nbytes = (4 * (vol.numel() + pos0.numel() + dirs.numel() + tf.numel())
               + hw + 32 + 16 * hw)            # inputs, window, out
     if name == "march_bwd":                   # g; vol_g, tf_g (f64), win_g
         nbytes += 16 * hw + 4 * vol.numel() + 8 * tf.numel() + 16
-    steps = sampled_steps(args, march)
+    steps = sampled_steps(args, march, own)
     ops = OPS_PER_STEP[name] * steps
     t_ops, t_bytes = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
@@ -717,6 +729,43 @@ def main() -> int:
     fold_ms = cuda_ms(k1_fold, 5)
     fold_device_ms = device_ms(k1_fold, 5, "march_fwd_kernel")[2]
     fold_copy_ms = device_ms(k1_fold, 5, "Memcpy")[2]
+
+    # K2 on each chunk, where it walks only the steps the chunk can own,
+    # beside K2 on the whole grid; on chunk 1 also against its plain version
+    out5 = march_forward(*args5, **march5)
+    k2_512 = dict(whole_device_ms=device_ms(
+        lambda: march_backward(*args5, out5, g5, **march5), 5,
+        "march_bwd_kernel")[0], chunk_device_ms=[], chunk_ms=[],
+        chunk_bounds=[])
+    for c in range(C5_CHUNKS):
+        cargs = (chunk_of(vol5, c, body5, 0),) + args5[1:]
+        own = (0, c * body5, body5, C5_N)
+        cout = march_forward(*cargs, **march5, own=own)
+
+        def k2_chunk(cargs=cargs, cout=cout, own=own):
+            return march_backward(*cargs, cout, g5, **march5, own=own)
+
+        k2_512["chunk_ms"].append(cuda_ms(k2_chunk, 5))
+        k2_512["chunk_device_ms"].append(
+            device_ms(k2_chunk, 5, "march_bwd_kernel")[0])
+        k2_512["chunk_bounds"].append(bound("march_bwd", cargs, march5,
+                                            own))
+        if c == 1:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ref = march_backward_plain(*cargs, cout, g5, **march5, own=own)
+            ev[1].record()
+            torch.cuda.synchronize()
+            k2_512["chunk1_plain_ms"] = ev[0].elapsed_time(ev[1])
+            k2_512["chunk1_max_abs_err"], ok = max_errs(k2_chunk(), ref)
+            check(ok, f"512^3 chunk 1: K2 vs plain "
+                  f"{k2_512['chunk1_max_abs_err']}")
+            own_bwd_err = max(own_bwd_err,
+                              *k2_512["chunk1_max_abs_err"].values())
+            del ref
+        del cargs, cout
+    k2_512["chunk_device_sum_ms"] = sum(k2_512["chunk_device_ms"])
+    del out5
     emit(phase="timing_depth_chunks",
          workload=f"{C5_N}^3 sphere, {FRAME_W}x{FRAME_H}, {FRAME_STEPS} "
          f"steps, ET off, ntf {NTF}, {C5_CHUNKS} chunks along z", gpu=gpu,
@@ -724,7 +773,8 @@ def main() -> int:
          k1_whole_device_ms=k1_512_device_ms, k1_fold_ms=fold_ms,
          k1_fold_kernels_device_ms=fold_device_ms,
          k1_fold_copies_device_ms=fold_copy_ms,
-         fold_over_whole=fold_ms / k1_512_ms)
+         fold_over_whole=fold_ms / k1_512_ms, k2=k2_512, k2_atol=BWD_ATOL,
+         k2_rtol=BWD_RTOL)
 
     # -- 3d. one-rank NCCL group: the sharded frame and optimize at config 5
     with socket.socket() as sock:
@@ -1598,7 +1648,17 @@ def main() -> int:
              "bound_ms": depth5d["bounds"]["march_bwd"][0],
              "bound_by": depth5d["bounds"]["march_bwd"][1],
              "max_abs_err": max(depth5d["k2_max_abs_err"].values()),
-             "shape": depth5d["shape"]}},
+             "shape": depth5d["shape"]},
+         "depth_chunk_512": {
+             "chunks": C5_CHUNKS, "ms": k2_512["chunk_ms"],
+             "device_ms": k2_512["chunk_device_ms"],
+             "device_sum_ms": k2_512["chunk_device_sum_ms"],
+             "whole_device_ms": k2_512["whole_device_ms"],
+             "bound_ms": [b[0] for b in k2_512["chunk_bounds"]],
+             "bound_by": [b[1] for b in k2_512["chunk_bounds"]],
+             "chunk1_plain_ms": k2_512["chunk1_plain_ms"],
+             "chunk1_max_abs_err": max(
+                 k2_512["chunk1_max_abs_err"].values())}},
     ]}), flush=True)
     # the devices this run used: those it allocated memory on
     used = sum(torch.cuda.max_memory_allocated(i) > 0

@@ -103,6 +103,15 @@ def case_params(name):
         c["vol"] = rng.uniform(size=(2, 2, 2)).astype(np.float32)
     elif name == "close_wide_fov_et":
         c["camera"], c["fov"], c["et"] = (30.0, 20.0, 0.9), 90.0, True
+    elif name.startswith("near_constant"):
+        # every sample inside the grid lands on the same two TF texels, so
+        # one TF-gradient run spans all of a ray's steps on a chunk
+        c["vol"] = (0.5 + 1e-3 * rng.uniform(-1.0, 1.0, (N, N, N))).astype(
+            np.float32)
+        if name == "near_constant_et":
+            # opaque enough that T falls below eps within a quarter's steps
+            c["tf"][:, 3] = np.linspace(0.6, 0.8, NTF, dtype=np.float32)
+            c["et"] = True
     c["march"] = dict(num_steps=STEPS, step_size=1.8 / STEPS,
                       early_termination=c["et"], termination_eps=1.0 / 255.0)
     return c
@@ -323,9 +332,14 @@ def cpu_kernels(tmp_path_factory):
     """K1 and K2 from ``csrc/`` compiled by g++ for the CPU, bound as
     ``kernels/march.py`` binds the nvcc builds."""
     out = tmp_path_factory.mktemp("cuda_on_cpu")
-    return {name: march._bind(name, ctypes.CDLL(compile_for_cpu(
+    libs = {name: march._bind(name, ctypes.CDLL(compile_for_cpu(
         os.path.join(_build.CSRC_DIR, name + ".cu"), out)))
         for name in ("march_fwd", "march_bwd")}
+    # the stand-in's record of K2's walk (k2_walks)
+    lib = libs["march_bwd"]
+    lib.emul_walk_reset.restype = lib.emul_walks.restype = None
+    lib.emul_walks.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 3
+    return libs
 
 
 # The stand-in's barrier timeout for the fault cases below, in seconds.
@@ -418,7 +432,15 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
     ("graze_faces", (2, 4, 1)), ("graze_faces", (0, 4, 2)),
     ("orient_30_20", (2, 4, 2)), ("orient_200_5", (1, 4, 2)),
     ("early_termination", (1, 4, 1)), ("early_termination", (0, 4, 2)),
-    ("graze_corner", (1, 4, 3))])
+    ("graze_corner", (1, 4, 3)),
+    # K2's step interval of a chunk (test_k2_chunk_edge_cases_reach_their_
+    # edge checks that each case gets there): a TF run still open
+    # where the interval ends, the first chunk's border samples, early
+    # termination on a chunk past the first, warps whose every lane has an
+    # empty interval
+    ("near_constant", (0, 4, 1)), ("near_constant", (2, 4, 2)),
+    ("near_constant", (1, 4, 0)), ("near_constant_et", (0, 4, 2)),
+    ("near_constant_et", (1, 4, 1)), ("graze_faces", (2, 4, 3))])
 def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
                                                      own, table):
     """The CUDA sources, compiled by g++ for the CPU, against the plain
@@ -465,9 +487,12 @@ def test_k2_occupancy_is_queried_once_per_device_and_tf_size(cpu_kernels,
 
 def owned_steps_proxy(pos0, dirs, own, num_steps: int, step_size: float):
     """Each ray's steps ``[k_begin, k_end)`` on the depth chunk ``own``, as
-    ``csrc/march_common.cuh:owned_steps`` computes them, in float32 NumPy.
-    A proxy: it shows that a case's rays reach empty intervals, not what
-    the kernel walked."""
+    ``csrc/march_common.cuh:owned_steps`` computes them, in float32 NumPy
+    (the same operations, so the same bits); ``[0, num_steps)`` for the
+    whole volume (``own`` None)."""
+    if own is None:
+        shape = pos0.shape[:-1]
+        return np.zeros(shape, int), np.full(shape, num_steps)
     f = np.float32
     axis, a_start, body, n_total = own
     o = pos0[..., 2 - axis].numpy()
@@ -493,6 +518,92 @@ def test_chunk_cases_have_rays_with_an_empty_step_interval():
     hit = args[4].numpy()
     assert ((k_end == k_begin) & hit).sum() > 100
     assert ((k_end - k_begin > 0) & hit).sum() > 100
+
+
+def k2_walks(libs, args, kw):
+    """``(first, last, count)`` per pixel: the steps K2 (the g++ build)
+    walked on each ray in one launch, as the CPU stand-in records them
+    (``MARCH_WALKED_STEP``); -1, -1, 0 where a ray walked none."""
+    lib = libs["march_bwd"]
+    lib.emul_walk_reset()
+    cpu_launch(libs, args, kw, march_forward_plain(*args, **kw),
+               cotangent(args))
+    hit = args[4]
+    walks = [np.empty(hit.shape, np.int32) for _ in range(3)]
+    lib.emul_walks(hit.numel(), *(w.ctypes.data for w in walks))
+    return walks
+
+
+@pytest.mark.parametrize("name,own", [
+    ("orient_30_20", None), ("early_termination", None),
+    ("graze_faces", (2, 4, 1)), ("graze_faces", (2, 4, 3)),
+    ("near_constant", (0, 4, 1)), ("near_constant", (1, 4, 0)),
+    ("near_constant_et", (0, 4, 2)), ("orient_200_5", (1, 4, 2)),
+    ("close_wide_fov", (0, 4, 1))])
+def test_k2_walks_only_the_steps_of_owned_steps(cpu_kernels, name, own):
+    """K2's walk, recorded by the CPU stand-in: each hit ray starts at its
+    own ``k_begin`` of ``owned_steps`` (``owned_steps_proxy``; 0 on the
+    whole volume), walks consecutive steps and stops before ``k_end``; a ray
+    whose interval is empty, or that misses the box, walks none.  A K2 that
+    walks from k = 0 on a chunk fails here."""
+    args, kw = (case_inputs(name, "cpu") if own is None
+                else own_inputs(name, *own, "cpu"))
+    first, last, count = k2_walks(cpu_kernels, args, kw)
+    k_begin, k_end = owned_steps_proxy(args[2], args[3], kw.get("own"),
+                                       kw["num_steps"], kw["step_size"])
+    hit = args[4].numpy()
+    walks = hit & (k_end > k_begin)
+    assert (count[~walks] == 0).all()
+    assert (count[walks] >= 1).all()
+    np.testing.assert_array_equal(first[walks], k_begin[walks])
+    np.testing.assert_array_equal(count[walks],
+                                  last[walks] - first[walks] + 1)
+    assert (last[walks] < k_end[walks]).all()
+    if own is not None:
+        # rays a walk from step 0 would get wrong: they start past it, or
+        # own no step at all
+        assert (hit & ((k_begin > 0) | (k_end == k_begin))).sum() > 100
+
+
+def test_k2_chunk_edge_cases_reach_their_edge():
+    """The chunk cases added for K2's interval reach what they are there
+    for (``owned_steps_proxy`` and the plain forward, in NumPy): a warp
+    of hit rays whose every lane has an empty interval; on the
+    near-constant grid, one TF texel pair for every voxel; the first
+    chunk's samples at lower corner -1; early termination inside a chunk
+    past the first."""
+    # a warp (2 rows of a 16x16 block) of hit rays, all with empty intervals
+    args, kw = own_inputs("graze_faces", 2, 4, 3, "cpu")
+    k_begin, k_end = owned_steps_proxy(args[2], args[3], kw["own"],
+                                       kw["num_steps"], kw["step_size"])
+    hit = args[4].numpy()
+    h, w = hit.shape
+    rows = -(-h // 2) * 2
+    empty = np.ones((rows, -(-w // 16) * 16), bool)
+    empty[:h, :w] = k_end <= k_begin
+    some_hit = np.zeros_like(empty)
+    some_hit[:h, :w] = hit
+
+    def warps(a):
+        return a.reshape(rows // 2, 2, -1, 16).transpose(0, 2, 1, 3) \
+            .reshape(rows // 2, -1, 32)
+
+    assert (warps(empty).all(-1) & warps(some_hit).any(-1)).sum() >= 4
+    # one TF texel pair on the near-constant grid
+    vol = case_params("near_constant")["vol"]
+    assert np.unique(np.floor(vol * np.float32(NTF) - 0.5)).tolist() == [15]
+    # samples of the first chunk at lower corner -1 along its axis (y)
+    args, kw = own_inputs("near_constant", 1, 4, 0, "cpu")
+    k = np.arange(kw["num_steps"], dtype=np.float32)
+    pos = (args[2].numpy()[..., None, :] + (k * np.float32(kw["step_size"]))
+           [:, None] * args[3].numpy()[..., None, :])
+    inside = ((pos >= 0) & (pos <= 1)).all(-1) & args[4].numpy()[..., None]
+    corner = np.floor(pos[..., 1] * np.float32(N) - 0.5)
+    assert (inside & (corner == -1)).sum() > 100
+    # early termination inside chunk 2 of 4 along z: T <= eps on many rays
+    args, kw = own_inputs("near_constant_et", 0, 4, 2, "cpu")
+    alpha = march_forward_plain(*args, **kw)[..., 3].numpy()
+    assert (alpha >= 1.0 - kw["termination_eps"]).sum() > 100
 
 
 class _FakeTextureLib:

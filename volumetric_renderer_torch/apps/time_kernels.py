@@ -19,7 +19,8 @@ the card's name and power limit and these times in ms, each the median of
   steps, 256x256, yaw 0 pitch 20, the first view of ``apps.optimize``'s
   ring);
 * ``k2_512_chunks_ms``: K2 on each of 4 depth chunks along z of a 512^3
-  sphere, 1920x1080, 512 steps;
+  sphere, 1920x1080, 512 steps (``k2_512_chunks_sum_ms`` their sum), and
+  ``k2_512_whole_ms``: K2 on the whole 512^3 grid at the same view;
 
 and with ``--what all`` also ``k1_config3_ms``, ``k1_config4_view_ms``,
 ``frame_ref_ms`` (the reference frame,
@@ -68,6 +69,12 @@ process group ``torchrun`` starts, one process per card::
     PYTHONPATH=<checkout> torchrun --standalone --nproc_per_node 4 \
         volumetric_renderer_torch/apps/time_kernels.py --what app5
 
+and then, for each parallel mode, a ``torch.profiler`` trace of a third
+run of :data:`TRACE_STEPS` steps on every rank, split per step by
+:func:`step_breakdown` (its wall time, device time by kind, idle share,
+launches).  Rank 0 prints one line per rank, ``{"trace_rank": r, ...}``
+(gathered with ``all_gather_object``), before the line of times.
+
 The optimize app's own ``train_s`` alone would not do: its first step in
 a process builds the kernels (nvcc) and fills K1's texture, so a timed
 run must follow a warm-up run in the same process; this mode runs both
@@ -108,16 +115,18 @@ times only the named ones.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
 import statistics
 import subprocess
+from unittest import mock
 
 import numpy as np
 import torch
 
-from volumetric_renderer_torch.utils.metrics import time_calls
+from volumetric_renderer_torch.utils.metrics import PhaseTimers, time_calls
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -125,13 +134,25 @@ def cuda_ms(fn, iters: int) -> float:
     return statistics.median(time_calls(fn, iters, "cuda"))
 
 
-def device_ms(fn, iters: int, kernel: str):
-    """Device times of the entries whose name holds ``kernel`` in a
-    ``torch.profiler`` run of ``fn`` ``iters`` times after one warm-up:
-    ``(median ms of an entry, number of entries, ms per call of fn, the
-    entries' names)``; ``(None, 0, None, [])`` where the profiler saw
-    none.  ``kernel="Memcpy"`` takes no host-device copy."""
+def device_entries(events) -> list:
+    """The device activity among a ``torch.profiler`` run's ``events``:
+    kernels, copies and fills.  Not the spans that a ``record_function``
+    range (``Optimizer.step#...``, ``nccl:...``, a user's) also leaves on
+    the device's timeline: those are user annotations, named as on the
+    host, and counting them would count their kernels twice."""
     from torch.autograd import DeviceType
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in host]
+
+
+def device_ms(fn, iters: int, kernel: str):
+    """Device times of the entries (:func:`device_entries`) whose name
+    holds ``kernel`` in a ``torch.profiler`` run of ``fn`` ``iters`` times
+    after one warm-up: ``(median ms of an entry, number of entries, ms per
+    call of fn, the entries' names)``; ``(None, 0, None, [])`` where the
+    profiler saw none.  ``kernel="Memcpy"`` takes no host-device copy."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -142,8 +163,8 @@ def device_ms(fn, iters: int, kernel: str):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.events()
-                if kernel in e.name and e.device_type == DeviceType.CUDA
+        hits = [e for e in device_entries(prof.events())
+                if kernel in e.name
                 and not ("HtoD" in e.name or "DtoH" in e.name)]
         us = [e.time_range.elapsed_us() for e in hits]
         if us:
@@ -304,6 +325,113 @@ def config5_depth_step(tf, iters: int) -> dict:
     return res
 
 
+#: Steps of the optimize app in each traced run of ``--what app5``.
+TRACE_STEPS = 3
+#: Device entries by kind, matched in order on the lowered entry name; an
+#: entry that matches none is Adam's where it starts inside the device span
+#: of an ``Optimizer.step`` range, else "rest".
+DEVICE_KINDS = (("k1", "march_fwd_kernel"), ("k2", "march_bwd_kernel"),
+                ("nccl", "nccl"), ("copies", "memcpy"), ("copies", "memset"))
+
+
+class TracedTimers(PhaseTimers):
+    """:class:`PhaseTimers` whose phases are also spans of a
+    ``torch.profiler`` trace (``record_function``), so that a trace of the
+    optimize app shows each ``train_step``."""
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        with torch.profiler.record_function(name), super().phase(name):
+            yield
+
+
+def step_breakdown(events, span: str = "train_step") -> dict:
+    """Per step of a ``torch.profiler`` trace (the CPU spans named
+    ``span``; a step ends with a read of its loss, so its device work lies
+    inside its span): the mean wall time ``wall_ms``, the device time of
+    each kind of :data:`DEVICE_KINDS` plus ``adam`` and ``rest`` (sums of
+    :func:`device_entries`, which overlap where two streams run at once),
+    the time some entry runs (``device_busy_ms``) and the idle share ``1 -
+    busy/wall``, the K1 and K2 launches, the NCCL entries and the 8
+    largest "rest" entries by name, and the 8 host operations whose
+    kernels take most of the "rest" and Adam (``rest_by_op_ms``), ms per
+    step."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == span and e.device_type == DeviceType.CPU)
+    entries = device_entries(events)
+    counted = {id(e) for e in entries}
+    adam_spans = [(e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA and id(e) not in counted
+                  and e.name.startswith("Optimizer.step")]
+    kinds = dict.fromkeys(("k1", "k2", "nccl", "adam", "copies", "rest"),
+                          0.0)
+    launches = {"k1": 0, "k2": 0}
+    by_name = {"nccl": collections.Counter(), "rest": collections.Counter()}
+    busy = []
+    for e in entries:
+        a, b = e.time_range.start, e.time_range.end
+        inside = [(s, t) for s, t in spans if s <= a <= t]
+        if not inside:
+            continue
+        busy.append((a, min(b, inside[0][1])))
+        name = e.name.lower()
+        kind = next((k for k, key in DEVICE_KINDS if key in name), None)
+        if kind is None:
+            kind = ("adam" if any(s <= a <= t for s, t in adam_spans)
+                    else "rest")
+        kinds[kind] += (b - a) / 1e3
+        if kind in launches:
+            launches[kind] += 1
+        if kind in by_name:
+            by_name[kind][e.name] += (b - a) / 1e3
+    # the "rest" by the operation that launched it (the profiler's own
+    # attribution of kernels to host operations): its outermost operation
+    # in the step, or the backward node it runs in
+    by_op = collections.Counter()
+    for e in events:
+        if (e.device_type != DeviceType.CPU or not getattr(e, "kernels", None)
+                or not any(s <= e.time_range.start <= t for s, t in spans)):
+            continue
+        top, op = e, e.cpu_parent
+        while (op is not None and op.name != span
+               and not top.name.startswith("autograd::engine::")):
+            top, op = op, op.cpu_parent
+        for k in e.kernels:
+            if not any(key in k.name.lower() for _, key in DEVICE_KINDS):
+                by_op[top.name] += k.duration / 1e3
+    busy_ms, end = 0.0, float("-inf")
+    for a, b in sorted(busy):              # the union of the entries
+        busy_ms += max(0.0, b - max(a, end)) / 1e3
+        end = max(end, b)
+    n = max(1, len(spans))
+    wall_ms = sum(t - s for s, t in spans) / 1e3 / n
+    return dict(
+        steps=len(spans), wall_ms=wall_ms,
+        device_ms={k: v / n for k, v in kinds.items()},
+        device_busy_ms=busy_ms / n,
+        idle_share=1.0 - busy_ms / n / wall_ms if spans else None,
+        launches={k: v / n for k, v in launches.items()},
+        nccl_ms={k: v / n for k, v in by_name["nccl"].most_common()},
+        rest_top_ms={k: v / n for k, v in by_name["rest"].most_common(8)},
+        rest_by_op_ms={k: v / n for k, v in by_op.most_common(8)})
+
+
+def traced_app_steps(argv: list) -> dict:
+    """:func:`step_breakdown` of ``apps.optimize.main(argv)`` traced by
+    ``torch.profiler`` (CPU and, where present, CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volumetric_renderer_torch.apps import optimize
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with mock.patch.object(optimize, "PhaseTimers", TracedTimers), \
+            profile(activities=activities) as prof:
+        optimize.main(argv)
+    return step_breakdown(prof.events())
+
+
 def config5_apps(res: dict, smi: str) -> dict:
     """``--what app5``: the ``app_step_config5_{depth,pixels}_8views_ms``
     times of the module docstring in the process group that ``torchrun``
@@ -318,7 +446,11 @@ def config5_apps(res: dict, smi: str) -> dict:
 
     init_distributed()
     world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
     res.update(world=world, nvidia_smi_all=smi)
+    trace = dict(trace_rank=rank, world=world,
+                 gpu=torch.cuda.get_device_name(), nvidia_smi_all=smi,
+                 steps_traced=TRACE_STEPS)
     for par in ("depth", "pixels"):
         c5 = ["invert", "--grid", "512", "--size", "1920x1080",
               "--march-steps", "512", "--views", "8", "--device", "cuda",
@@ -327,10 +459,18 @@ def config5_apps(res: dict, smi: str) -> dict:
                 contextlib.redirect_stderr(null):
             optimize.main(c5 + ["--steps-opt", "1"])
             run = optimize.main(c5 + ["--steps-opt", "4"])
+            trace[par] = traced_app_steps(
+                c5 + ["--steps-opt", str(TRACE_STEPS)])
         res[f"app_step_config5_{par}_8views_ms"] = \
             1e3 * run["train_s"] / len(run["losses"])
         res[f"app_config5_{par}_8views_losses"] = run["losses"]
-    if not dist.is_initialized() or dist.get_rank() == 0:
+    traces = [trace]
+    if dist.is_initialized():
+        traces = [None] * world
+        dist.all_gather_object(traces, trace)
+    if rank == 0:
+        for line in traces:
+            print(json.dumps(line), flush=True)
         print(json.dumps(res), flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -549,7 +689,10 @@ def main(argv=None) -> dict:
             del cargs, out
         res["k2_512_chunks_ms"] = chunk_ms
         res["k2_512_chunks_sum_ms"] = sum(chunk_ms)
-        del vol5, kargs, g
+        out = march_forward(*kargs, **march)
+        res["k2_512_whole_ms"] = cuda_ms(
+            lambda: march_backward(*kargs, out, g, **march), args.iters)
+        del vol5, kargs, g, out
 
     if args.what == "all":
         res.update(config4_step(vol, tf, args.iters))

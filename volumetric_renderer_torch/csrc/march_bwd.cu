@@ -24,7 +24,10 @@
 // with G = g_rgb.rgb_out and T_fin = 1 - alpha_out from the forward's
 // output.  The early exits are K1's (box exit, T <= eps with early
 // termination, the slicing window, a step another depth chunk owns); all
-// are exact, because the plain version adds exactly 0 on those steps.
+// are exact, because the plain version adds exactly 0 on those steps.  On a
+// depth chunk a ray walks only the steps the chunk can own, the interval K1
+// walks (march_common.cuh:owned_steps), as the TPU kernel loops over
+// [k_lo, k_hi) only; the steps outside it add exactly 0 as well.
 //
 // What bounds it, measured on an H100 (PERF.md §6): not the voxel
 // scatter.  At BASELINE config 3 (256^3, 1920x1080, 512 steps) K2 took
@@ -87,6 +90,14 @@
 // tolerance (atol 1e-4, rtol 1e-5), not exactly.
 
 #include "march_common.cuh"
+
+// Called once for each step a ray walks (samples, or finds outside the box,
+// the slicing window or the chunk).  Empty on the card; the CPU stand-in of
+// the CUDA runtime (tests/cuda_on_cpu/cuda_runtime.h) records the walk, so
+// that a test can hold it to owned_steps.
+#ifndef MARCH_WALKED_STEP
+#define MARCH_WALKED_STEP(ray, k)
+#endif
 
 namespace {
 
@@ -181,6 +192,15 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     o = reinterpret_cast<const float4*>(out)[ray];
     g = reinterpret_cast<const float4*>(grad)[ray];
   }
+  // The steps this ray can own on a depth chunk, as K1 walks them
+  // (march_common.cuh:owned_steps; [0, num_steps) on the whole volume).  A
+  // lane whose interval is empty starts dead, and each lane walks from its
+  // own k_begin: only the loop's trip count is the warp's.
+  int k = 0, k_end = 0;
+  if (live) {
+    march::owned_steps(grid, rr, dt, num_steps, k, k_end);
+    live = k < k_end;
+  }
   const float big_g = g.x * o.x + g.y * o.y + g.z * o.z;
   const float ga_tfin = g.w * (1.0f - o.w);
   const float fntf = static_cast<float>(ntf);
@@ -191,12 +211,13 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
   double acc_lo[4] = {0.0, 0.0, 0.0, 0.0};
   double acc_hi[4] = {0.0, 0.0, 0.0, 0.0};
   march::Sample s;
-  for (int k = 0; __any_sync(kFullWarp, live); ++k) {
+  for (; __any_sync(kFullWarp, live); ++k) {
     bool sampled = false;
     if (live) {
-      if (k >= num_steps || (early_termination && !(tr > eps))) {
+      if (k >= k_end || (early_termination && !(tr > eps))) {
         live = false;
       } else {
+        MARCH_WALKED_STEP(ray, k);
         const int kind =
             march::sample_step(vol, grid, tf_s, ntf, rr, win, k, dt, s);
         live = kind != march::kLeftBox;
