@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the forward and backward ray-march kernels (``volumetric_renderer_
-torch/csrc/march_fwd.cu``, ``march_bwd.cu``) with nvcc, holds each against
+torch/csrc/march_fwd.cu``, ``march_bwd.cu``) and the depth fold's kernels
+(``csrc/fold.cu``) with nvcc, holds each against
 its plain PyTorch version on the card (K1 bit for bit, on border and
 depth-chunk cases too, with rays whose chunk step interval is empty),
 holds render gradients through both against plain autograd, renders a 256^3 NRRD volume at 1920x1080 / 512 steps
@@ -13,10 +14,13 @@ sizes of BASELINE configs 3 (TF fit, 1920x1080) and 4 (grid inversion, 32
 views, with checkpoint and resume), and times the kernels against the plain
 versions.  The multi-device path (``parallel/``): both kernels on depth
 chunks (the ownership range ``own``) against their plain versions, a 512^3
-volume folded from 4 depth chunks against the whole-volume frame and its
-gradients, K2's device time on each of those chunks (where it walks only
-the steps the chunk can own) beside K2 on the whole grid, with chunk 1
-against its plain version, and, in a one-rank NCCL process group, the
+volume folded from 4 depth chunks by the fold kernels against the
+whole-volume frame and its gradients, K2's device time on each of those
+chunks (where it walks only the steps the chunk can own) beside K2 on the
+whole grid, with chunk 1 against its plain version, the fold kernels
+against their plain versions and autograd on the 4 chunks' partials of an
+8-view config-5 step (phase ``fold_kernel_vs_plain``), and, in a one-rank
+NCCL process group, the depth renderer's gather and fold, the
 pixel-sharded config-5 frame (512^3, 1920x1080, 512 steps) and ``apps.optimize
 --parallel pixels|depth`` at that size.  Both train steps march all their
 views at once: config 4 and config 5 under ``--parallel depth`` must make
@@ -74,6 +78,9 @@ KERNELS = {
                   "volumetric_renderer_tpu/kernels/slab.py:160"),
     "march_bwd": ("volumetric_renderer_torch/csrc/march_bwd.cu",
                   "volumetric_renderer_tpu/kernels/slab.py:912"),
+    "fold": ("volumetric_renderer_torch/csrc/fold.cu",
+             "volumetric_renderer_tpu/parallel/depth.py:68 composite_chunks "
+             "(XLA, no Pallas)"),
 }
 PLAIN_BWD_LIMIT_S = 120.0   # time the plain backward at fewer steps past it
 OWN_CHUNKS = (2, 4)     # depth chunks of the small kernel-vs-plain cases
@@ -93,6 +100,10 @@ FOLD_GRAD_REL = 5e-4
 # (-fmad=false), so each counts once against a peak that counts an FMA as 2.
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 OPS_PER_STEP = {"march_fwd": 98, "march_bwd": 186}
+# The fold kernels against their plain versions: the forward bit for bit,
+# each chunk's backward within FOLD_KERNEL_REL of the largest gradient (the
+# closed form rounds T and the fold behind another way than autograd).
+FOLD_VIEWS, FOLD_KERNEL_REL = 8, 1e-6
 
 
 def emit(**obj):
@@ -210,12 +221,18 @@ def main() -> int:
     from volumetric_renderer_torch.data.nrrd import write_nrrd
     from volumetric_renderer_torch.data.volume import Volume
     from volumetric_renderer_torch.kernels import _build
+    from volumetric_renderer_torch.kernels import fold as kfold
+    from volumetric_renderer_torch.kernels.fold import (
+        fold, fold_backward, fold_backward_plain, fold_forward,
+        fold_forward_plain,
+    )
     from volumetric_renderer_torch.kernels.march import (
         _one_wave, load_library, march_backward, march_backward_plain,
         march_forward, march_forward_plain, make_kernel_marcher,
     )
     from volumetric_renderer_torch.parallel.depth import (
-        chunk_of, dominant_axis, fold_partials, make_depth_sharded_renderer,
+        _GatherFold, chunk_of, dominant_axis, fold_partials,
+        make_depth_sharded_renderer,
     )
     from volumetric_renderer_torch.parallel.distributed import (
         init_distributed,
@@ -247,12 +264,15 @@ def main() -> int:
         count set to 0 just before; returns its result and the counts."""
         torch.cuda.synchronize()
         march_forward.launches = march_backward.launches = 0
+        fold_forward.launches = fold_backward.launches = 0
         march_forward.texture_fills = 0
         res = fn()
         torch.cuda.synchronize()
         return res, {"march_fwd": march_forward.launches,
                      "march_bwd": march_backward.launches,
-                     "texture_fills": march_forward.texture_fills}
+                     "texture_fills": march_forward.texture_fills,
+                     "fold_fwd": fold_forward.launches,
+                     "fold_bwd": fold_backward.launches}
 
     def quietly(fn, *args):
         """``fn(*args)`` with its printed lines sent to stderr: this run's
@@ -285,7 +305,10 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, built in builds.items():
-        load_library(name)
+        if name == "fold":
+            kfold.load_library()
+        else:
+            load_library(name)
         emit(phase="build", kernel=name, source=KERNELS[name][0],
              seconds=built.seconds,
              ptxas=[ln.strip() for ln in built.log.splitlines()
@@ -673,8 +696,8 @@ def main() -> int:
     def fold_grads(n_chunks):
         """The frame and its (vol, tf, dmin, dmax) gradients of sum(img*g5):
         the whole volume (n_chunks 1, no range) or n_chunks depth chunks
-        along z, folded per ray (halo-row gradients land on their owners
-        through chunk_of's backward)."""
+        along z, folded per ray by the fold kernels (halo-row gradients
+        land on their owners through chunk_of's backward)."""
         xs = [x.detach().requires_grad_(True)
               for x in (vol5, tf_ramp, dmin, dmax)]
         if n_chunks == 1:
@@ -686,12 +709,13 @@ def main() -> int:
                 **march5, own=(0, c * body, body, C5_N))(
                 chunk_of(xs[0], c, body, 0), xs[1], origin, dirs, xs[2],
                 xs[3], smin, smax) for c in range(n_chunks)]
-            img = fold_partials(torch.stack(parts), dirs, 0)
+            img = fold(torch.stack(parts), dirs, 0)
         (img * g5).sum().backward()
         return img.detach(), [x.grad for x in xs]
 
     whole5, grads_w = fold_grads(1)
-    folded5, grads_c = fold_grads(C5_CHUNKS)
+    (folded5, grads_c), n_fold = counted(lambda: fold_grads(C5_CHUNKS))
+    fold_launches = {k: n_fold[k] for k in ("fold_fwd", "fold_bwd")}
     torch.cuda.synchronize()
     diff = (folded5 - whole5).abs().max(dim=-1).values
     fold_err, fold_share = float(diff.max()), float(
@@ -705,13 +729,15 @@ def main() -> int:
          alpha_max=float(whole5[..., 3].max()), max_abs_err=fold_err,
          share_within_atol=fold_share, atol=FRAME_ATOL,
          grad_max_abs_err=grad_err, grad_max_abs=grad_max,
-         grad_rel_bar=FOLD_GRAD_REL)
+         grad_rel_bar=FOLD_GRAD_REL, launches=n_fold)
     check(bool(torch.isfinite(folded5).all()), "folded frame not finite")
     check(float(whole5[..., 3].max()) > 0.9, "config-5 frame is empty")
     check(fold_share >= FRAME_SHARE and fold_err <= FRAME_MAX,
           f"folded frame vs whole: {fold_err}, share {fold_share}")
     check(all(grad_err[n] <= FOLD_GRAD_REL * grad_max[n] for n in grad_err),
           f"chunk gradients vs whole: {grad_err} (max {grad_max})")
+    check(fold_launches == {"fold_fwd": 1, "fold_bwd": C5_CHUNKS},
+          f"the depth fold's fold launches {n_fold}")
     del whole5, folded5, grads_w, grads_c
 
     # timing: K1 on the whole 512^3 grid, and on its 4 chunks as the fold
@@ -776,6 +802,105 @@ def main() -> int:
          fold_over_whole=fold_ms / k1_512_ms, k2=k2_512, k2_atol=BWD_ATOL,
          k2_rtol=BWD_RTOL)
 
+    # -- 3c'. the fold kernels against their plain versions at config-5
+    # width: the 4 chunks' (8*1080, 1920, 4) partials of an 8-view depth
+    # step (made from a seed), folded along the views' rays, which march
+    # both ways along the split axis (the optimize app's two opposing arcs)
+    t_phase = time.perf_counter()
+    yaws_f = np.concatenate([np.linspace(-40.0, 40.0, FOLD_VIEWS // 2),
+                             np.linspace(140.0, 220.0, FOLD_VIEWS // 2)])
+    cams_f = [OrbitCamera.from_angles(float(a), 20.0) for a in yaws_f]
+    axis_f = dominant_axis(cams_f)
+    dirs_f = frame_inputs(vol5, stack_cameras(cams_f), s5)[1]
+    dirs_f = dirs_f.reshape(-1, FRAME_W, 3).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shape_f = (C5_CHUNKS,) + tuple(dirs_f.shape[:2])
+    alpha_f = 0.999 * torch.rand(shape_f + (1,), generator=gen, device=dev)
+    parts_f = torch.cat([alpha_f * torch.rand(shape_f + (3,), generator=gen,
+                                              device=dev), alpha_f], -1)
+    g_f = torch.randn(tuple(dirs_f.shape[:2]) + (4,), generator=gen,
+                      device=dev)
+    del alpha_f
+    reverse_f = dirs_f[..., 2 - axis_f] < 0.0
+    rays_f, n_rev = reverse_f.numel(), int(reverse_f.sum())
+    check(0 < n_rev < rays_f, f"fold rays march one way only ({n_rev} of "
+          f"{rays_f} reversed)")
+    got_f = fold_forward(parts_f, dirs_f, axis_f)
+    plain_f = fold_forward_plain(parts_f, dirs_f, axis_f)
+    fold_equal = bool(torch.equal(got_f, plain_f))
+    fold_fwd_err = float((got_f - plain_f).abs().max())
+    del plain_f
+    x_f = parts_f.clone().requires_grad_(True)
+    (fold_partials(x_f, dirs_f, axis_f) * g_f).sum().backward()
+    auto_f = x_f.grad
+    del x_f
+    fold_bwd_err, fold_bwd_auto_err, fold_grad_max = [], [], []
+    for r in range(C5_CHUNKS):
+        got_r = fold_backward(parts_f, dirs_f, axis_f, g_f, r)
+        plain_r = fold_backward_plain(parts_f, dirs_f, axis_f, g_f, r)
+        fold_bwd_err.append(float((got_r - plain_r).abs().max()))
+        fold_bwd_auto_err.append(float((got_r - auto_f[r]).abs().max()))
+        fold_grad_max.append(float(auto_f[r].abs().max()))
+        del got_r, plain_r
+    del auto_f
+    fold_bwd_ok = all(
+        a <= FOLD_KERNEL_REL * m and b <= FOLD_KERNEL_REL * m
+        for a, b, m in zip(fold_bwd_err, fold_bwd_auto_err, fold_grad_max))
+
+    def fold_fwd_call():
+        return fold_forward(parts_f, dirs_f, axis_f)
+
+    def fold_bwd_call(r=1):
+        return fold_backward(parts_f, dirs_f, axis_f, g_f, r)
+
+    def fold_bound(backward, r=1):
+        """``(bound_ms, bound_by, work)`` of one fold call on these rays:
+        the forward reads every partial, the backward the n - 1 partials
+        other than chunk r's and g; both read the directions and write
+        16 bytes a ray.  Operations per ray from fold.cu: 10 per over, 1
+        compare; the backward 2 per chunk before r, 10 per over behind it
+        beyond the first, 12 for the gradient."""
+        n = C5_CHUNKS
+        if not backward:
+            nbytes = rays_f * (16 * n + 12 + 16)
+            ops = rays_f * (10 * (n - 1) + 1)
+        else:
+            nbytes = rays_f * (16 * (n - 1) + 12 + 16 + 16)
+            ops = 0
+            for pos, count in ((r, rays_f - n_rev), (n - 1 - r, n_rev)):
+                ops += count * (1 + 2 * pos + 10 * max(n - 2 - pos, 0) + 12)
+        t_ops, t_bytes = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+                "bytes", dict(operations=ops, bytes=nbytes, ops_ms=t_ops,
+                              bytes_ms=t_bytes))
+
+    fold_t = dict(
+        fwd_ms=cuda_ms(fold_fwd_call, 10),
+        fwd_device_ms=device_ms(fold_fwd_call, 10, "fold_fwd_kernel")[0],
+        bwd_ms=cuda_ms(fold_bwd_call, 10),
+        bwd_device_ms=device_ms(fold_bwd_call, 10, "fold_bwd_kernel")[0],
+        fwd_plain_ms=cuda_ms(
+            lambda: fold_forward_plain(parts_f, dirs_f, axis_f), 3),
+        bwd_plain_ms=cuda_ms(lambda: fold_backward_plain(
+            parts_f, dirs_f, axis_f, g_f, 1), 3),
+        bwd_device_ms_per_chunk=[device_ms(
+            lambda r=r: fold_bwd_call(r), 5, "fold_bwd_kernel")[0]
+            for r in range(C5_CHUNKS)])
+    fold_b = {"forward": fold_bound(False), "backward": fold_bound(True)}
+    fold_shape = list(dirs_f.shape[:2])
+    emit(phase="fold_kernel_vs_plain", chunks=C5_CHUNKS, views=FOLD_VIEWS,
+         shape=fold_shape, axis=axis_f, rays_reversed=n_rev,
+         gpu=gpu, nvidia_smi=smi, fwd_bitwise_equal_plain=fold_equal,
+         fwd_max_abs_err=fold_fwd_err,
+         bwd_max_abs_err_vs_plain=fold_bwd_err,
+         bwd_max_abs_err_vs_autograd=fold_bwd_auto_err,
+         bwd_max_abs=fold_grad_max, rel_bar=FOLD_KERNEL_REL, **fold_t,
+         bounds=fold_b, seconds=time.perf_counter() - t_phase)
+    check(fold_equal, "the fold kernel differs from fold_forward_plain")
+    check(fold_bwd_ok, f"fold backward vs plain {fold_bwd_err}, vs autograd "
+          f"{fold_bwd_auto_err} (max {fold_grad_max})")
+    del parts_f, g_f, got_f, dirs_f, reverse_f
+
     # -- 3d. one-rank NCCL group: the sharded frame and optimize at config 5
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -785,11 +910,31 @@ def main() -> int:
     probe = torch.full((4,), 2.0, device=rank_dev)
     dist.all_reduce(probe)      # the group's NCCL communicator works
     torch.cuda.synchronize()
+
+    # the depth renderer's gather and fold (_GatherFold) in this group: one
+    # all_gather into one buffer, then the fold kernels on one chunk, which
+    # give back the partial and the cotangent themselves
+    part1 = torch.rand((64, FRAME_W, 4), generator=gen, device=dev)
+    g1 = torch.randn((64, FRAME_W, 4), generator=gen, device=dev)
+    dir1 = torch.randn((64, FRAME_W, 3), generator=gen, device=dev)
+
+    def gather_fold_one_rank():
+        x = part1.clone().requires_grad_(True)
+        img = _GatherFold.apply(x, dir1, 0, None, 0, 1)
+        (img * g1).sum().backward()
+        return img.detach(), x.grad
+
+    (img1, grad1), n_gf = counted(gather_fold_one_rank)
+    gf_exact = bool(torch.equal(img1, part1) and torch.equal(grad1, g1))
     emit(phase="process_group", backend=dist.get_backend(),
          world=dist.get_world_size(), rank=dist.get_rank(),
-         device=str(rank_dev), all_reduce=probe.tolist())
+         device=str(rank_dev), all_reduce=probe.tolist(),
+         gather_fold_exact=gf_exact, gather_fold_launches=n_gf)
     check(dist.get_backend() == "nccl" and probe.tolist() == [2.0] * 4,
           f"process group {dist.get_backend()}: {probe.tolist()}")
+    check(gf_exact and (n_gf["fold_fwd"], n_gf["fold_bwd"]) == (1, 1),
+          f"_GatherFold in a one-rank group: exact {gf_exact}, {n_gf}")
+    del part1, g1, dir1, img1, grad1
     s5_et = RenderSettings(height=FRAME_H, width=FRAME_W,
                            step_size=1.8 / FRAME_STEPS)    # ET on
     sharded = make_sharded_renderer(None, s5_et, row_layout="tile-cyclic")
@@ -1659,6 +1804,33 @@ def main() -> int:
              "chunk1_plain_ms": k2_512["chunk1_plain_ms"],
              "chunk1_max_abs_err": max(
                  k2_512["chunk1_max_abs_err"].values())}},
+        # one forward and one backward (chunk 1), the pair a depth-sharded
+        # step launches, on the 8-view config-5 partials of 4 chunks
+        {"name": "fold", "route": "cuda", "source": KERNELS["fold"][0],
+         "replaces": KERNELS["fold"][1],
+         "launches": sum(fold_launches.values()),
+         "launches_by_kernel": fold_launches,
+         "max_abs_err": max(fold_fwd_err, *fold_bwd_err),
+         "ms": fold_t["fwd_ms"] + fold_t["bwd_ms"],
+         "device_ms": None if None in (fold_t["fwd_device_ms"],
+                                       fold_t["bwd_device_ms"])
+         else fold_t["fwd_device_ms"] + fold_t["bwd_device_ms"],
+         "plain_ms": fold_t["fwd_plain_ms"] + fold_t["bwd_plain_ms"],
+         "bound_ms": fold_b["forward"][0] + fold_b["backward"][0],
+         "bound_by": ("bytes" if fold_b["forward"][1] ==
+                      fold_b["backward"][1] == "bytes" else "operations"),
+         "library_ms": None,
+         "shape": fold_shape, "chunks": C5_CHUNKS,
+         "forward": {"ms": fold_t["fwd_ms"],
+                     "device_ms": fold_t["fwd_device_ms"],
+                     "plain_ms": fold_t["fwd_plain_ms"],
+                     "bound_ms": fold_b["forward"][0],
+                     "max_abs_err": fold_fwd_err},
+         "backward": {"ms": fold_t["bwd_ms"],
+                      "device_ms": fold_t["bwd_device_ms"],
+                      "plain_ms": fold_t["bwd_plain_ms"],
+                      "bound_ms": fold_b["backward"][0],
+                      "max_abs_err": max(fold_bwd_err)}},
     ]}), flush=True)
     # the devices this run used: those it allocated memory on
     used = sum(torch.cuda.max_memory_allocated(i) > 0

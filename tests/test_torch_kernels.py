@@ -1,7 +1,8 @@
-"""The ray-march kernels, forward (K1) and backward (K2): their build step
-and wrappers on any machine, and the kernels themselves against their plain
-PyTorch versions on a CUDA card (tests marked ``cuda``; they skip without
-one).
+"""The ray-march kernels, forward (K1) and backward (K2), and the depth
+fold's kernels (``csrc/fold.cu``): their build step and wrappers on any
+machine, the CUDA sources compiled by g++ for the CPU, and the kernels
+themselves against their plain PyTorch versions on a CUDA card (tests
+marked ``cuda``; they skip without one).
 
 This file imports neither JAX nor the JAX package, so the ``cuda`` tests
 also run where JAX is not installed:
@@ -15,7 +16,10 @@ that f32 atomics take in another order on every run); render gradients
 through K1 + K2 against oracle autograd atol 1e-4 (the oracle has no
 ``ALPHA_EPS`` clamp).  The same bars hold on depth chunks (``own``), which
 ``tests/test_torch_depth.py`` holds to the JAX package's whole-volume
-render on the CPU.
+render on the CPU.  The fold: forward ``torch.equal`` to its plain version
+(the same operations in the same order, -fmad=false), each chunk's
+backward within ``1e-6 * max|grad|`` of its plain version (the bar of
+``tests/test_torch_fold.py`` against autograd).
 """
 
 import ctypes
@@ -35,6 +39,7 @@ from volumetric_renderer_torch.core.marcher import prepare_rays
 from volumetric_renderer_torch.data.volume import Volume
 from volumetric_renderer_torch.core.fused import make_fused_marcher
 from volumetric_renderer_torch.kernels import _build, march
+from volumetric_renderer_torch.kernels import fold as kfold
 from volumetric_renderer_torch.kernels.march import (
     make_kernel_marcher,
     march_backward,
@@ -340,6 +345,74 @@ def cpu_kernels(tmp_path_factory):
     lib.emul_walk_reset.restype = lib.emul_walks.restype = None
     lib.emul_walks.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 3
     return libs
+
+
+@pytest.fixture(scope="module")
+def cpu_fold(tmp_path_factory):
+    """``csrc/fold.cu`` compiled by g++ for the CPU, bound as
+    ``kernels/fold.py`` binds the nvcc build."""
+    return kfold._bind(ctypes.CDLL(compile_for_cpu(
+        os.path.join(_build.CSRC_DIR, "fold.cu"),
+        tmp_path_factory.mktemp("fold_on_cpu"))))
+
+
+FOLD_REL = 1e-6
+
+
+def fold_inputs(n, rays, device="cpu", seed=0):
+    """``(parts (n, rays, 4), dirs (rays, 3), g (rays, 4))`` from a seed:
+    premultiplied partials, directions of both signs on every axis."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.uniform(0.0, 0.999, size=(n, rays, 1))
+    parts = np.concatenate([alpha * rng.uniform(size=(n, rays, 3)), alpha],
+                           -1)
+    dirs = rng.normal(size=(rays, 3))
+    g = rng.normal(size=(rays, 4))
+    return tuple(torch.as_tensor(x.astype(np.float32), device=device)
+                 for x in (parts, dirs, g))
+
+
+def cpu_fold_launch(lib, parts, dirs, axis, g=None, r=0):
+    """The fold (``g`` None) or chunk ``r``'s backward on CPU tensors,
+    through the C interface the wrapper calls."""
+    n, rays = parts.shape[:2]
+    out = torch.empty((rays, 4))
+    if g is None:
+        code = lib.fold_fwd_launch(0, parts.data_ptr(), n, rays,
+                                   dirs.data_ptr(), axis, out.data_ptr(),
+                                   None)
+    else:
+        code = lib.fold_bwd_launch(0, parts.data_ptr(), n, rays,
+                                   dirs.data_ptr(), axis, g.data_ptr(), r,
+                                   out.data_ptr(), None)
+    assert code == 0
+    return out
+
+
+def assert_fold_grad_close(got, want):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0,
+                               atol=FOLD_REL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rays", [256, 300, 1])
+@pytest.mark.parametrize("axis", [0, 2])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_fold_source_compiled_for_cpu_matches_plain(cpu_fold, n, axis, rays):
+    """``csrc/fold.cu``, compiled by g++ for the CPU, against the plain
+    versions: the fold bit for bit, each chunk's backward within
+    ``1e-6 * max|grad|``; ray counts of one block of 256, of one and a
+    part (the last block masked) and of one ray."""
+    parts, dirs, g = fold_inputs(n, rays, seed=n + rays)
+    if rays > 1:
+        d = dirs[:, 2 - axis]
+        assert bool((d < 0).any()) and bool((d > 0).any())
+    got = cpu_fold_launch(cpu_fold, parts, dirs, axis)
+    assert torch.equal(got, kfold.fold_forward_plain(parts, dirs, axis))
+    for r in range(n):
+        assert_fold_grad_close(
+            cpu_fold_launch(cpu_fold, parts, dirs, axis, g, r),
+            kfold.fold_backward_plain(parts, dirs, axis, g, r))
 
 
 # The stand-in's barrier timeout for the fault cases below, in seconds.
@@ -976,6 +1049,83 @@ def test_k1_whole_and_chunk_in_turns_without_host_sync_on_cuda(cuda):
             march_forward_plain(*chunk, **kw, own=own))
     for i, x in enumerate(got):
         assert torch.equal(x, want[i % 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rays", [(1, 300), (2, 4097), (4, 70000)])
+def test_fold_kernels_match_plain_on_cuda(cuda, n, rays):
+    """The fold kernels on the card: the fold ``torch.equal`` to its plain
+    version and each chunk's backward within ``1e-6 * max|grad|``, one
+    launch each; the differentiable ``fold`` against autograd through the
+    plain fold."""
+    parts, dirs, g = fold_inputs(n, rays, cuda, seed=rays)
+    for axis in (0, 1, 2):
+        before = (kfold.fold_forward.launches, kfold.fold_backward.launches)
+        got = kfold.fold_forward(parts, dirs, axis)
+        grads = [kfold.fold_backward(parts, dirs, axis, g, r)
+                 for r in range(n)]
+        assert (kfold.fold_forward.launches,
+                kfold.fold_backward.launches) == (before[0] + 1,
+                                                  before[1] + n)
+        assert torch.equal(got, kfold.fold_forward_plain(parts, dirs, axis))
+        for r in range(n):
+            assert_fold_grad_close(grads[r], kfold.fold_backward_plain(
+                parts, dirs, axis, g, r))
+        x = parts.clone().requires_grad_(True)
+        (kfold.fold(x, dirs, axis) * g).sum().backward()
+        y = parts.clone().requires_grad_(True)
+        (kfold.fold_forward_plain(y, dirs, axis) * g).sum().backward()
+        assert_fold_grad_close(x.grad, y.grad)
+
+
+@pytest.mark.cuda
+def test_fold_kernels_launch_without_host_sync(cuda):
+    parts, dirs, g = fold_inputs(4, 5000, cuda)
+    kfold.fold_backward(parts, dirs, 1, g, 2)             # build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kfold.fold_forward(parts, dirs, 1)
+        grad = kfold.fold_backward(parts, dirs, 1, g, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, kfold.fold_forward_plain(parts, dirs, 1))
+    assert_fold_grad_close(grad, kfold.fold_backward_plain(parts, dirs, 1,
+                                                           g, 2))
+
+
+@pytest.mark.cuda
+def test_fold_forward_refuses_parts_that_require_grad_on_cuda(cuda):
+    """The kernel's output carries no graph: ``fold_forward`` on parts that
+    require grad raises under grad mode and runs under ``no_grad``."""
+    parts, dirs, _ = fold_inputs(2, 300, cuda)
+    x = parts.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="differentiate through fold"):
+        kfold.fold_forward(x, dirs, 0)
+    with torch.no_grad():
+        assert torch.equal(kfold.fold_forward(x, dirs, 0),
+                           kfold.fold_forward_plain(parts, dirs, 0))
+
+
+@pytest.mark.cuda
+def test_failing_fold_launch_raises(cuda, monkeypatch):
+    """A CUDA error from a fold launch raises; nothing falls back to the
+    plain version and the launch is not counted."""
+    parts, dirs, g = fold_inputs(2, 300, cuda)
+    lib = kfold.load_library()
+    monkeypatch.setattr(lib, "fold_fwd_launch", lambda *a: 700)
+    monkeypatch.setattr(lib, "fold_bwd_launch", lambda *a: 700)
+    monkeypatch.setattr(kfold, "fold_forward_plain", None)
+    monkeypatch.setattr(kfold, "fold_backward_plain", None)
+    before = (kfold.fold_forward.launches, kfold.fold_backward.launches)
+    with pytest.raises(RuntimeError, match="fold: launch failed: CUDA "
+                                           "error 700"):
+        kfold.fold_forward(parts, dirs, 0)
+    with pytest.raises(RuntimeError, match="fold: launch failed: CUDA "
+                                           "error 700"):
+        kfold.fold_backward(parts, dirs, 0, g, 1)
+    assert (kfold.fold_forward.launches,
+            kfold.fold_backward.launches) == before
 
 
 @pytest.mark.cuda

@@ -68,14 +68,14 @@ def test_step_breakdown_splits_device_time_by_kind_within_steps():
     ]
     got = step_breakdown(events)
     assert got["steps"] == 2 and got["wall_ms"] == pytest.approx(0.2)
-    want = dict(k1=0.005, k2=0.06, nccl=0.015, adam=0.0015, copies=0.001,
-                rest=0.0055)
+    want = dict(k1=0.005, k2=0.06, fold=0.0, nccl=0.015, adam=0.0015,
+                copies=0.001, rest=0.0055)
     for k, v in want.items():
         assert got["device_ms"][k] == pytest.approx(v), k
     # step 1 busy 10..62, 85..88, 95..96 = 56 us; step 2 210..320 = 110 us
     assert got["device_busy_ms"] == pytest.approx(0.083)
     assert got["idle_share"] == pytest.approx(1.0 - 0.083 / 0.2)
-    assert got["launches"] == {"k1": 0.5, "k2": 1.0}
+    assert got["launches"] == {"k1": 0.5, "k2": 1.0, "fold": 0.0}
     assert list(got["nccl_ms"]) == ["ncclDevKernel_AllReduce_Sum_f32(x)",
                                     "ncclDevKernel_AllGather_RING_LL(x)"]
     assert got["rest_top_ms"] == pytest.approx(
@@ -83,6 +83,37 @@ def test_step_breakdown_splits_device_time_by_kind_within_steps():
     assert got["rest_by_op_ms"] == pytest.approx(
         {"autograd::engine::evaluate_function: FoldBackward": 0.005,
          "aten::where": 0.0005})
+
+
+def test_step_breakdown_counts_the_fold_kernels_as_their_own_kind():
+    """The depth fold's forward and backward kernels (``csrc/fold.cu``) are
+    the kind ``fold``, with their launches; they are not in the rest, by
+    kernel or by host operation."""
+    cuda = DeviceType.CUDA
+    step = event("train_step", 0, 100)
+    node = event("autograd::engine::evaluate_function: _GatherFoldBackward",
+                 60, 90, parent=step)
+    events = [
+        step,
+        event("_GatherFold", 10, 20, parent=step,
+              kernels=[("void (anonymous namespace)::fold_fwd_kernel(x)",
+                        4.0)]),
+        event("aten::empty_like", 61, 62, parent=node,
+              kernels=[("void (anonymous namespace)::fold_bwd_kernel(x)",
+                        6.0)]),
+        event("void (anonymous namespace)::fold_fwd_kernel(float4 const*)",
+              20, 24, cuda),
+        event("void (anonymous namespace)::fold_bwd_kernel(float4 const*)",
+              70, 76, cuda),
+        event("elementwise_kernel<mul>", 80, 82, cuda),
+    ]
+    got = step_breakdown(events)
+    assert got["device_ms"]["fold"] == pytest.approx(0.01)
+    assert got["device_ms"]["rest"] == pytest.approx(0.002)
+    assert got["launches"] == {"k1": 0, "k2": 0, "fold": 2}
+    assert got["rest_top_ms"] == pytest.approx(
+        {"elementwise_kernel<mul>": 0.002})
+    assert got["rest_by_op_ms"] == {}
 
 
 def test_device_entries_leave_out_the_spans_of_ranges():

@@ -331,6 +331,7 @@ TRACE_STEPS = 3
 #: entry that matches none is Adam's where it starts inside the device span
 #: of an ``Optimizer.step`` range, else "rest".
 DEVICE_KINDS = (("k1", "march_fwd_kernel"), ("k2", "march_bwd_kernel"),
+                ("fold", "fold_fwd_kernel"), ("fold", "fold_bwd_kernel"),
                 ("nccl", "nccl"), ("copies", "memcpy"), ("copies", "memset"))
 
 
@@ -352,7 +353,8 @@ def step_breakdown(events, span: str = "train_step") -> dict:
     each kind of :data:`DEVICE_KINDS` plus ``adam`` and ``rest`` (sums of
     :func:`device_entries`, which overlap where two streams run at once),
     the time some entry runs (``device_busy_ms``) and the idle share ``1 -
-    busy/wall``, the K1 and K2 launches, the NCCL entries and the 8
+    busy/wall``, the K1, K2 and fold launches (the depth fold's forward
+    and backward kernels, ``csrc/fold.cu``), the NCCL entries and the 8
     largest "rest" entries by name, and the 8 host operations whose
     kernels take most of the "rest" and Adam (``rest_by_op_ms``), ms per
     step."""
@@ -364,9 +366,9 @@ def step_breakdown(events, span: str = "train_step") -> dict:
     adam_spans = [(e.time_range.start, e.time_range.end) for e in events
                   if e.device_type == DeviceType.CUDA and id(e) not in counted
                   and e.name.startswith("Optimizer.step")]
-    kinds = dict.fromkeys(("k1", "k2", "nccl", "adam", "copies", "rest"),
-                          0.0)
-    launches = {"k1": 0, "k2": 0}
+    kinds = dict.fromkeys(("k1", "k2", "fold", "nccl", "adam", "copies",
+                           "rest"), 0.0)
+    launches = {"k1": 0, "k2": 0, "fold": 0}
     by_name = {"nccl": collections.Counter(), "rest": collections.Counter()}
     busy = []
     for e in entries:

@@ -21,16 +21,19 @@ the partials fold in march order.  On each rank:
    where its lower corner along ``axis`` lies in the chunk;
 3. ``all_gather`` the ``(H, W, 4)`` partials and fold them **per ray**:
    ascending chunk order where the ray's direction along ``axis`` is
-   >= 0, descending where it is < 0.  A ray-major kernel has no slab
+   >= 0, descending where it is < 0 (``kernels.fold``: a kernel on CUDA,
+   its plain version on the CPU).  A ray-major kernel has no slab
    orientation, so views may march along any axis, either way.
 
 A camera of V views takes each step once for all of them: its rays are
 stacked along rows, so a train step makes one halo exchange, one K1 and
 one K2 launch and one ``all_gather`` whatever V is.
 
-Backward: the grid gradient stays on its rank, and the halo row's gradient
-goes back to rank + 1's first body row (the transpose of the halo
-exchange); the TF and window gradients are summed across the ranks once.
+Backward: the fold's gradient is written out for this rank's partial
+alone (``kernels.fold.fold_backward``), the grid gradient stays on its
+rank, and the halo row's gradient goes back to rank + 1's first body row
+(the transpose of the halo exchange); the TF and window gradients are
+summed across the ranks once.
 
 Early termination inside a chunk uses the chunk's own T, starting at 1 (as
 in the JAX package), so depth-sharded renders run with it off.  Callers
@@ -44,23 +47,17 @@ import torch
 import torch.distributed as dist
 
 from volumetric_renderer_torch.core.marcher import frame_inputs
-from volumetric_renderer_torch.parallel.mesh import group_info
-from volumetric_renderer_torch.parallel.render import (
-    gather_blocks,
-    march_views,
-    sum_across,
+from volumetric_renderer_torch.kernels.fold import (
+    fold_backward,
+    fold_forward,
+    fold_forward_plain,
+    over,
 )
+from volumetric_renderer_torch.parallel.mesh import group_info
+from volumetric_renderer_torch.parallel.render import march_views, sum_across
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils import quaternion as quat
 from volumetric_renderer_torch.utils.config import RenderSettings
-
-
-def over(front: torch.Tensor, back: torch.Tensor) -> torch.Tensor:
-    """Associative over-operator on premultiplied ``(..., 4)`` partials."""
-    t = 1.0 - front[..., 3:4]
-    rgb = front[..., :3] + t * back[..., :3]
-    alpha = 1.0 - t[..., 0] * (1.0 - back[..., 3])
-    return torch.cat([rgb, alpha[..., None]], dim=-1)
 
 
 def composite_chunks(partials, reverse: bool = False) -> torch.Tensor:
@@ -75,19 +72,9 @@ def composite_chunks(partials, reverse: bool = False) -> torch.Tensor:
     return out
 
 
-def fold_partials(partials: torch.Tensor, dirs: torch.Tensor,
-                  axis: int) -> torch.Tensor:
-    """Fold ``(n, H, W, 4)`` chunk partials per ray: ascending chunk order
-    where the ray's direction along array axis ``axis`` (0 z, 1 y, 2 x) is
-    >= 0, descending where it is < 0.  On a view whose rays all march one
-    way this is :func:`composite_chunks` with ``reverse`` set to match."""
-    n = partials.shape[0]
-    backward = (dirs[..., 2 - axis] < 0.0)[..., None]
-    out = None
-    for i in range(n):
-        p = torch.where(backward, partials[n - 1 - i], partials[i])
-        out = p if out is None else over(out, p)
-    return out
+#: The per-ray fold's plain version (``kernels.fold``; its kernel is
+#: ``kernels.fold.fold_forward``).
+fold_partials = fold_forward_plain
 
 
 def chunk_of(vol: torch.Tensor, c: int, body: int, axis: int) -> torch.Tensor:
@@ -204,6 +191,39 @@ class _HaloExchange(torch.autograd.Function):
         return g_local, None, None, None, None
 
 
+# ``all_gather_single`` is the newer name of ``all_gather_into_tensor``
+_all_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+class _GatherFold(torch.autograd.Function):
+    """This rank's partial image ``(R, W, 4)`` -> every rank's partial
+    gathered (one ``all_gather`` into one ``(world, R, W, 4)`` buffer) and
+    folded per ray (``kernels.fold.fold_forward``): the whole image.  The
+    backward is the gradient of this rank's partial alone
+    (``kernels.fold.fold_backward`` with ``r = rank``): right when the loss
+    is computed from the folded image identically on every rank, as the
+    depth train step's replicated loss is (the contract of
+    ``parallel.render.gather_blocks``)."""
+
+    @staticmethod
+    def forward(ctx, partial, rays, axis, group, rank, world):
+        partial = partial.contiguous()
+        parts = partial.new_empty((world * partial.shape[0],) +
+                                  tuple(partial.shape[1:]))
+        _all_gather_into(parts, partial, group=group)
+        parts = parts.view((world,) + tuple(partial.shape))
+        ctx.axis, ctx.rank = axis, rank
+        ctx.save_for_backward(parts, rays)
+        return fold_forward(parts, rays, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts, rays = ctx.saved_tensors
+        return (fold_backward(parts, rays, ctx.axis, g, ctx.rank), None,
+                None, None, None, None)
+
+
 def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
                                 axis: int, method: str = "auto",
                                 reduce_grads: bool = True):
@@ -227,7 +247,9 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
     (``parallel.render.march_views``: the fewest groups past
     ``kernels.march.MAX_ROWS``), one ``all_gather`` of the partials and
     the per-ray fold over the stacked image, whose rays may march either
-    way along ``axis``.
+    way along ``axis`` (:class:`_GatherFold`: one fold launch forward and
+    one backward on CUDA).  In a world of one the image is the partial
+    itself.
     """
     vol_shape = tuple(int(v) for v in vol_shape)
     group, rank, world = group_info(group)
@@ -258,8 +280,9 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
         rays = dirs.reshape((-1, h, w, 3))
         partial = march_views(march, chunk, tf, origin, rays, dmin, dmax,
                               smin, smax)               # (V*H, W, 4)
-        parts = gather_blocks(partial[None], group)
-        img = fold_partials(parts, rays.reshape((-1, w, 3)), axis)
-        return img.reshape(views + (h, w, 4))
+        if world > 1:
+            partial = _GatherFold.apply(partial, rays.reshape((-1, w, 3)),
+                                        axis, group, rank, world)
+        return partial.reshape(views + (h, w, 4))
 
     return render_fn
