@@ -447,11 +447,15 @@ def test_cpu_stand_in_fails_a_skipped_collective_instead_of_hanging(
     assert (got, out.value) == (code, value)
 
 
-def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
+def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False,
+               counts=None):
     """K1 (``out`` None) or K2 on CPU tensors, through the C interface the
     wrapper calls; returns what ``march_forward`` / ``march_backward``
     would.  K2 sums its TF gradient in shared memory first with
-    ``shared_table``, and adds into 3 copies of it in any case."""
+    ``shared_table``, and adds into 3 copies of it in any case.  With
+    ``counts``, the address of the kernel's slots in a counter buffer
+    (``march.KernelCounts.pointer``), the launch runs the kernel's counted
+    instantiation, which adds to them."""
     vol, tf, pos0, dirs, hit = args[:5]
     h, w = pos0.shape[:2]
     own = march._own_args("cpu_launch", kw.get("own"), vol)
@@ -468,7 +472,8 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
         assert lib.march_fwd_texture_fill(handle, vol.data_ptr(), None) == 0
         res = torch.empty((h, w, 4))
         code = lib.march_fwd_launch(*rays, tex.value, *tail, res.data_ptr(),
-                                    h, w, window.data_ptr(), *steps, None)
+                                    h, w, window.data_ptr(), *steps, counts,
+                                    None)
         assert lib.march_fwd_texture_free(handle) == 0
         assert code == 0
         return res
@@ -480,7 +485,7 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False):
     code = libs["march_bwd"].march_bwd_launch(
         *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(),
         tf_g.data_ptr(), 3, int(shared_table), win_g.data_ptr(), h, w,
-        window.data_ptr(), *steps, march.ALPHA_EPS, None)
+        window.data_ptr(), *steps, march.ALPHA_EPS, counts, None)
     assert code == 0
     win_g = win_g.float()
     return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]

@@ -28,20 +28,25 @@ def test_step_breakdown_splits_device_time_by_kind_within_steps():
     ``Optimizer.step`` range, two entries that overlap (counted once in the
     busy time), the spans that ranges leave on the device (flagged, or
     named as on the host) counted nowhere, and neither are entries outside
-    every step."""
+    every step; the "rest" goes to its host operation, through the
+    program's ``vr.*`` spans."""
     cuda = DeviceType.CUDA
     step = event("train_step", 0, 100)
+    # the program's own spans (``vr.*``) between a step and its operations
+    inner = event("vr.train_step", 1, 99, parent=step)
+    loss = event("vr.loss", 90, 97, parent=inner)
     node = event("autograd::engine::evaluate_function: FoldBackward", 210,
                  290)
+    k2 = event("vr.k2", 239, 252, parent=node)
     events = [
-        step, event("train_step", 200, 500),
+        step, inner, loss, k2, event("train_step", 200, 500),
         # the host operations that launched the "rest": one in the step,
         # one inside a backward node, one outside every step
         event("aten::mul", 94, 95, parent=event("aten::where", 93, 96,
-                                                parent=step),
+                                                parent=loss),
               kernels=[("elementwise_kernel<mul>", 1.0)]),
         event("aten::sum", 249, 250, parent=event("aten::add", 240, 251,
-                                                  parent=node),
+                                                  parent=k2),
               kernels=[("reduce_kernel<sum>", 10.0),
                        ("void march_bwd_kernel<true>", 90.0)]),
         event("aten::fill_", 600, 601, kernels=[("fill", 10.0)]),

@@ -377,10 +377,3 @@ def test_phase_timers_and_meter(monkeypatch, caplog):
     assert meter.tick(100) is None          # t = 2.0
     assert meter.tick(100) == 50.0          # 100 items in 2 s
     assert meter.tick(300) == 400.0 / 3.0   # 400 items in 3 s
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with metrics.trace(str(tmp_path)):
-        torch.ones(8).sum()
-    with open(tmp_path / "trace.json") as f:
-        assert "traceEvents" in json.load(f)

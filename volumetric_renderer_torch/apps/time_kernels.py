@@ -121,12 +121,11 @@ import json
 import os
 import statistics
 import subprocess
-from unittest import mock
 
 import numpy as np
 import torch
 
-from volumetric_renderer_torch.utils.metrics import PhaseTimers, time_calls
+from volumetric_renderer_torch.utils.metrics import time_calls
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -335,17 +334,6 @@ DEVICE_KINDS = (("k1", "march_fwd_kernel"), ("k2", "march_bwd_kernel"),
                 ("nccl", "nccl"), ("copies", "memcpy"), ("copies", "memset"))
 
 
-class TracedTimers(PhaseTimers):
-    """:class:`PhaseTimers` whose phases are also spans of a
-    ``torch.profiler`` trace (``record_function``), so that a trace of the
-    optimize app shows each ``train_step``."""
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        with torch.profiler.record_function(name), super().phase(name):
-            yield
-
-
 def step_breakdown(events, span: str = "train_step") -> dict:
     """Per step of a ``torch.profiler`` trace (the CPU spans named
     ``span``; a step ends with a read of its loss, so its device work lies
@@ -389,7 +377,8 @@ def step_breakdown(events, span: str = "train_step") -> dict:
             by_name[kind][e.name] += (b - a) / 1e3
     # the "rest" by the operation that launched it (the profiler's own
     # attribution of kernels to host operations): its outermost operation
-    # in the step, or the backward node it runs in
+    # in the step, or the backward node it runs in, passing over the
+    # program's own spans (``vr.*``, ``utils.metrics.span``)
     by_op = collections.Counter()
     for e in events:
         if (e.device_type != DeviceType.CPU or not getattr(e, "kernels", None)
@@ -398,7 +387,9 @@ def step_breakdown(events, span: str = "train_step") -> dict:
         top, op = e, e.cpu_parent
         while (op is not None and op.name != span
                and not top.name.startswith("autograd::engine::")):
-            top, op = op, op.cpu_parent
+            if not op.name.startswith("vr."):
+                top = op
+            op = op.cpu_parent
         for k in e.kernels:
             if not any(key in k.name.lower() for _, key in DEVICE_KINDS):
                 by_op[top.name] += k.duration / 1e3
@@ -421,15 +412,16 @@ def step_breakdown(events, span: str = "train_step") -> dict:
 
 def traced_app_steps(argv: list) -> dict:
     """:func:`step_breakdown` of ``apps.optimize.main(argv)`` traced by
-    ``torch.profiler`` (CPU and, where present, CUDA activity)."""
+    ``torch.profiler`` (CPU and, where present, CUDA activity): each of the
+    app's ``train_step`` phases is a span of the trace
+    (``utils.metrics.PhaseTimers``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from volumetric_renderer_torch.apps import optimize
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with mock.patch.object(optimize, "PhaseTimers", TracedTimers), \
-            profile(activities=activities) as prof:
+    with profile(activities=activities) as prof:
         optimize.main(argv)
     return step_breakdown(prof.events())
 

@@ -40,6 +40,7 @@ from volumetric_renderer_torch.core.sampling import (
     trilinear_sample,
 )
 from volumetric_renderer_torch.transfer.texture import sample_tf, tf_lerp
+from volumetric_renderer_torch.utils.metrics import span
 
 ALPHA_EPS = 1e-7
 
@@ -227,7 +228,8 @@ class MarchFunction(torch.autograd.Function):
         vol, tf, origin, dirs = (x.detach() for x in (vol, tf, origin, dirs))
         dmin, dmax, smin, smax = (torch.as_tensor(x).detach()
                                   for x in (dmin, dmax, smin, smax))
-        pos0, hit, inv_window = prepare_rays(origin, dirs, dmin, dmax)
+        with span("vr.ray_setup"):
+            pos0, hit, inv_window = prepare_rays(origin, dirs, dmin, dmax)
         out = forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
                       **march_kw)
         ctx.backward_fn, ctx.march_kw = backward, march_kw

@@ -85,6 +85,11 @@
 //     f32 atomicAdds, which are CAS loops on this card, contended wherever
 //     neighbouring rays share a voxel; it is not built.
 //
+//   * A counted instantiation (kCount) counts the samples, the steps the
+//     warps pay for, the voxel atomics and the TF flushes, for
+//     utils/metrics.py:counting.  A launch without a counter buffer runs the
+//     other, which counts nothing.
+//
 // Atomics add in an order that changes from run to run, so the gradients
 // are not bitwise repeatable; they are held to the plain version with a
 // tolerance (atol 1e-4, rtol 1e-5), not exactly.
@@ -101,9 +106,9 @@
 
 namespace {
 
+using march::kFullWarp;
 using march::kTile;
 constexpr int kWarps = kTile * kTile / 32;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Adds the ended TF-gradient runs of a warp to `table`: every lane of the
 // warp calls it at once; `texel` < 0 where the lane adds nothing.
@@ -145,7 +150,10 @@ __device__ __forceinline__ void add_runs(double* table, int texel,
 // With the shared table, 3 blocks per SM (80 registers, a few spilled):
 // its launches run in waves, where more warps hide more of the gathers'
 // latency (2.23-2.33 against 2.51-2.59 ms at config 3 with 92 registers).
-template <bool kSharedTable>
+// kCount: the counted instantiation, which adds the block's samples, lane
+// steps, voxel atomics and TF flushes to `counts`
+// (march_common.cuh:add_block_counts); the other takes counts == nullptr.
+template <bool kSharedTable, bool kCount>
 __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     march_bwd_kernel(const float* __restrict__ pos0,
                      const float* __restrict__ dirs,
@@ -158,7 +166,8 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
                      int tf_copies, double* __restrict__ win_g, int height,
                      int width, const float* __restrict__ window,
                      int num_steps, float dt, int early_termination,
-                     float eps, float amax, float alpha_eps) {
+                     float eps, float amax, float alpha_eps,
+                     unsigned long long* __restrict__ counts) {
   // Dynamic shared memory, 16-byte aligned: with kSharedTable the (ntf, 4)
   // f64 gradient table first, then the (ntf, 4) f32 TF table (read as
   // float4 by march_common.cuh:shade).
@@ -211,7 +220,11 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
   double acc_lo[4] = {0.0, 0.0, 0.0, 0.0};
   double acc_hi[4] = {0.0, 0.0, 0.0, 0.0};
   march::Sample s;
+  // what the counted instantiation counts: every lane counts its warp's
+  // trips of this loop and its flushes, which are the same on every lane
+  int trips = 0, flushes = 0, n_sampled = 0, n_atomics = 0;
   for (; __any_sync(kFullWarp, live); ++k) {
+    if (kCount) ++trips;
     bool sampled = false;
     if (live) {
       if (k >= k_end || (early_termination && !(tr > eps))) {
@@ -228,6 +241,7 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     const bool ends = run_lo >= 0 &&
                       (sampled ? (s.lo != run_lo || s.hi != run_hi) : !live);
     if (__any_sync(kFullWarp, ends)) {
+      if (kCount) ++flushes;
       add_runs(tfg, ends ? run_lo : -1, acc_lo);
       add_runs(tfg, ends ? run_hi : -1, acc_hi);
       if (ends) {
@@ -237,6 +251,7 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
       }
     }
     if (!sampled) continue;
+    if (kCount) ++n_sampled;
 
     const bool clamped = s.a > amax;
     const float a = march::clamp_alpha(s.a, amax);
@@ -287,6 +302,7 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
               atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx,
                                                     grid.ny),
                         dl_dd * march::corner_weight(s, cx, cy, cz));
+              if (kCount) ++n_atomics;
             }
           }
         }
@@ -322,6 +338,14 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
       if (v != 0.0) atomicAdd(tfg_copy + i, v);
     }
   }
+  if (kCount) {
+    const unsigned long long c[4] = {
+        static_cast<unsigned long long>(n_sampled),
+        static_cast<unsigned long long>(trips),
+        static_cast<unsigned long long>(n_atomics),
+        static_cast<unsigned long long>(lane == 0 ? flushes : 0)};
+    march::add_block_counts(counts, c);
+  }
 }
 
 size_t smem_bytes(bool shared_table, int ntf) {
@@ -350,7 +374,7 @@ int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(false, ntf);
-  const auto kernel = march_bwd_kernel<false>;
+  const auto kernel = march_bwd_kernel<false, false>;
   err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -369,7 +393,9 @@ int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
 // 16-byte aligned.  shared_table != 0 sums each block's TF gradient in
 // shared memory first (ntf*48 bytes of it, else ntf*16).  own_* as for
 // march_fwd_launch: on a depth chunk, vol_g has the chunk's shape, halo row
-// included.
+// included.  counts, where not null, launches the counted instantiation,
+// which adds (samples, lane steps, voxel atomics, TF flushes) to
+// counts[0..4).
 int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
                      int ny, int nx, int own_axis, int own_start,
@@ -379,11 +405,16 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      double* win_g, int height, int width,
                      const float* window, int num_steps, float dt,
                      int early_termination, float eps, float amax,
-                     float alpha_eps, void* stream) {
+                     float alpha_eps, unsigned long long* counts,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto kernel =
-      shared_table ? march_bwd_kernel<true> : march_bwd_kernel<false>;
+      shared_table
+          ? (counts ? march_bwd_kernel<true, true>
+                    : march_bwd_kernel<true, false>)
+          : (counts ? march_bwd_kernel<false, true>
+                    : march_bwd_kernel<false, false>);
   const size_t smem = smem_bytes(shared_table != 0, ntf);
   err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -394,7 +425,7 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       pos0, dirs, hit, vol, vgrid, tf, ntf, out, grad, vol_g, tf_g,
       tf_copies, win_g, height, width, window, num_steps, dt,
-      early_termination, eps, amax, alpha_eps);
+      early_termination, eps, amax, alpha_eps, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -295,6 +295,38 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ pos0,
              dirs[ray * 3 + 0], dirs[ray * 3 + 1], dirs[ray * 3 + 2]};
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The counted instantiations of K1 and K2 (kCount) add what each thread
+// counted into `counts`, N u64 in device memory that the wrapper zeroes and
+// reads (kernels/march.py): a warp sums its lanes with shuffles, the block
+// its warps in shared memory, and thread 0 adds the block's sums, one
+// atomicAdd a count.  Every thread of the block calls it, with every lane of
+// its warp.
+template <int N>
+__device__ __forceinline__ void add_block_counts(
+    unsigned long long* counts, const unsigned long long (&c)[N]) {
+  constexpr int kWarps = kTile * kTile / 32;
+  __shared__ unsigned long long part[N][kWarps];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    unsigned long long v = c[i];
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      v += __shfl_down_sync(kFullWarp, v, offset);
+    }
+    if ((tid & 31) == 0) part[i][tid >> 5] = v;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < N; ++i) {
+      unsigned long long sum = 0;
+      for (int w = 0; w < kWarps; ++w) sum += part[i][w];
+      atomicAdd(counts + i, sum);
+    }
+  }
+}
+
 // Opts a kernel in to `smem` bytes of dynamic shared memory where that
 // exceeds the 48 KB a launch gets without asking.
 template <typename Kernel>

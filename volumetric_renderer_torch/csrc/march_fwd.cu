@@ -58,6 +58,9 @@
 //   * A depth chunk (own_axis >= 0) walks only the steps whose samples the
 //     chunk can own (march_common.cuh:owned_steps), each still under the
 //     exact ownership test: the steps of the other chunks are not walked.
+//   * A counted instantiation (kCount) counts the samples and the steps the
+//     warps pay for, for utils/metrics.py:counting.  A launch without a
+//     counter buffer runs the other, which counts nothing.
 
 #include "march_common.cuh"
 
@@ -85,28 +88,17 @@ __device__ __forceinline__ void fetch_texels(cudaTextureObject_t tex,
   v[7] = tex3D<float>(tex, x + 1.0f, y + 1.0f, z + 1.0f);
 }
 
-__global__ void __launch_bounds__(kTile * kTile)
-    march_fwd_kernel(const float* __restrict__ pos0,
-                     const float* __restrict__ dirs,
-                     const unsigned char* __restrict__ hit,
-                     cudaTextureObject_t tex, march::Grid grid,
-                     const float* __restrict__ tf, int ntf,
-                     float* __restrict__ out, int height, int width,
-                     const float* __restrict__ window, int num_steps,
-                     float dt, int early_termination, float eps,
-                     float amax) {
-  extern __shared__ float4 tf_s4[];
-  float* tf_s = reinterpret_cast<float*>(tf_s4);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
-    tf_s[i] = tf[i];
-  }
-  __syncthreads();
-  const march::Window win = march::load_window(window);
-
-  const int px = blockIdx.x * kTile + threadIdx.x;
-  const int py = blockIdx.y * kTile + threadIdx.y;
-  if (px >= width || py >= height) return;
+// Marches the ray of pixel (px, py), on the image, and writes its RGBA;
+// with kCount, adds the steps its loop entered to `walked` and its samples
+// to `sampled`.
+template <bool kCount>
+__device__ __forceinline__ void march_pixel(
+    const float* __restrict__ pos0, const float* __restrict__ dirs,
+    const unsigned char* __restrict__ hit, cudaTextureObject_t tex,
+    const march::Grid& grid, const float* tf_s, int ntf,
+    const march::Window& win, float* __restrict__ out, int width,
+    int num_steps, float dt, int early_termination, float eps, float amax,
+    int px, int py, int& walked, int& sampled) {
   const int64_t ray = static_cast<int64_t>(py) * width + px;
   if (!hit[ray]) {
     reinterpret_cast<float4*>(out)[ray] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -120,10 +112,12 @@ __global__ void __launch_bounds__(kTile * kTile)
   march::Sample s;
   float v[8];
   for (; k < k_end; ++k) {
+    if (kCount) ++walked;
     if (early_termination && !(tr > eps)) break;
     const int kind = march::locate_step(grid, rr, win, k, dt, s);
     if (kind == march::kLeftBox) break;
     if (kind != march::kSampled) continue;
+    if (kCount) ++sampled;
     fetch_texels(tex, s, v);
     march::shade(v, tf_s, ntf, win, s);
     const float a = march::clamp_alpha(s.a, amax);
@@ -134,6 +128,61 @@ __global__ void __launch_bounds__(kTile * kTile)
     tr = tr * (1.0f - a);
   }
   reinterpret_cast<float4*>(out)[ray] = make_float4(r, g, b, 1.0f - tr);
+}
+
+// kCount: the counted instantiation, which adds the block's samples and
+// lane steps to `counts` (march_common.cuh:add_block_counts); the other
+// takes counts == nullptr and counts nothing.
+template <bool kCount>
+__global__ void __launch_bounds__(kTile * kTile)
+    march_fwd_kernel(const float* __restrict__ pos0,
+                     const float* __restrict__ dirs,
+                     const unsigned char* __restrict__ hit,
+                     cudaTextureObject_t tex, march::Grid grid,
+                     const float* __restrict__ tf, int ntf,
+                     float* __restrict__ out, int height, int width,
+                     const float* __restrict__ window, int num_steps,
+                     float dt, int early_termination, float eps,
+                     float amax, unsigned long long* __restrict__ counts) {
+  extern __shared__ float4 tf_s4[];
+  float* tf_s = reinterpret_cast<float*>(tf_s4);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
+    tf_s[i] = tf[i];
+  }
+  __syncthreads();
+  const march::Window win = march::load_window(window);
+
+  const int px = blockIdx.x * kTile + threadIdx.x;
+  const int py = blockIdx.y * kTile + threadIdx.y;
+  const bool on_image = px < width && py < height;
+  int walked = 0, sampled = 0;
+  if (!kCount) {
+    if (on_image) {
+      march_pixel<false>(pos0, dirs, hit, tex, grid, tf_s, ntf, win, out,
+                         width, num_steps, dt, early_termination, eps, amax,
+                         px, py, walked, sampled);
+    }
+    return;
+  }
+  // Every thread of the counted instantiation stays to the end, for the
+  // warp's and the block's sums.  A warp pays for the longest walk among
+  // its lanes: its lane steps are 32 times that walk.
+  if (on_image) {
+    march_pixel<true>(pos0, dirs, hit, tex, grid, tf_s, ntf, win, out, width,
+                      num_steps, dt, early_termination, eps, amax, px, py,
+                      walked, sampled);
+  }
+  int longest = walked;
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    longest = max(longest, __shfl_down_sync(march::kFullWarp, longest,
+                                            offset));
+  }
+  const unsigned long long c[2] = {
+      static_cast<unsigned long long>(sampled),
+      (tid & 31) == 0 ? 32ull * static_cast<unsigned long long>(longest)
+                      : 0ull};
+  march::add_block_counts(counts, c);
 }
 
 // A grid's texture: the 3D array that holds a copy of the voxels, and the
@@ -226,27 +275,31 @@ int march_fwd_texture_free(void* handle) {
 // xyz): the kernel reads them on the card, so a launch needs no value on
 // the host.  own_axis < 0 marches the whole volume; else the grid is the
 // depth chunk that march_common.cuh:make_grid describes (own_start,
-// own_body, own_total).
+// own_body, own_total).  counts, where not null, launches the counted
+// instantiation, which adds (samples, lane steps) to counts[0..2).
 int march_fwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, unsigned long long tex,
                      int nz, int ny, int nx, int own_axis, int own_start,
                      int own_body, int own_total, const float* tf, int ntf,
                      float* out, int height, int width, const float* window,
                      int num_steps, float dt, int early_termination,
-                     float eps, float amax, void* stream) {
+                     float eps, float amax, unsigned long long* counts,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel =
+      counts ? march_fwd_kernel<true> : march_fwd_kernel<false>;
   const size_t smem = static_cast<size_t>(ntf) * 4 * sizeof(float);
-  err = march::allow_dynamic_smem(march_fwd_kernel, smem);
+  err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
                                              own_body, own_total);
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
-  march_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       pos0, dirs, hit, static_cast<cudaTextureObject_t>(tex), vgrid, tf, ntf,
       out, height, width, window, num_steps, dt, early_termination, eps,
-      amax);
+      amax, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

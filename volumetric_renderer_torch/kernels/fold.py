@@ -28,6 +28,7 @@ import torch
 
 from volumetric_renderer_torch.kernels import _build
 from volumetric_renderer_torch.kernels.march import _check_cuda, _device_of
+from volumetric_renderer_torch.utils.metrics import span
 
 _lib = None
 
@@ -168,19 +169,22 @@ def fold_forward(parts: torch.Tensor, dirs: torch.Tensor,
                            "kernel's output carries no graph; differentiate "
                            "through fold, whose backward is the fold_bwd "
                            "kernel (fold_backward)")
-    parts, dirs = _aligned(parts), _aligned(dirs)
-    out = torch.empty(parts.shape[1:], dtype=torch.float32, device=device)
-    rays = out.numel() // 4
-    if rays == 0:
+    with span("vr.fold"):
+        parts, dirs = _aligned(parts), _aligned(dirs)
+        out = torch.empty(parts.shape[1:], dtype=torch.float32,
+                          device=device)
+        rays = out.numel() // 4
+        if rays == 0:
+            return out
+        lib = load_library()
+        index, stream = _launch_args(device)
+        _check_cuda(lib.fold_fwd_launch(index, parts.data_ptr(),
+                                        parts.shape[0], rays,
+                                        dirs.data_ptr(), int(axis),
+                                        out.data_ptr(), stream),
+                    lib, "fold", "launch")
+        fold_forward.launches += 1
         return out
-    lib = load_library()
-    index, stream = _launch_args(device)
-    _check_cuda(lib.fold_fwd_launch(index, parts.data_ptr(), parts.shape[0],
-                                    rays, dirs.data_ptr(), int(axis),
-                                    out.data_ptr(), stream),
-                lib, "fold", "launch")
-    fold_forward.launches += 1
-    return out
 
 
 def fold_backward(parts: torch.Tensor, dirs: torch.Tensor, axis: int,
@@ -192,19 +196,22 @@ def fold_backward(parts: torch.Tensor, dirs: torch.Tensor, axis: int,
     device = _check("fold_backward", parts, dirs, axis, g, r)
     if device.type == "cpu":
         return fold_backward_plain(parts, dirs, axis, g, r)
-    parts, dirs, g = _aligned(parts), _aligned(dirs), _aligned(g)
-    grad = torch.empty_like(g)
-    rays = grad.numel() // 4
-    if rays == 0:
+    with span("vr.fold"):
+        parts, dirs, g = _aligned(parts), _aligned(dirs), _aligned(g)
+        grad = torch.empty_like(g)
+        rays = grad.numel() // 4
+        if rays == 0:
+            return grad
+        lib = load_library()
+        index, stream = _launch_args(device)
+        _check_cuda(lib.fold_bwd_launch(index, parts.data_ptr(),
+                                        parts.shape[0], rays,
+                                        dirs.data_ptr(), int(axis),
+                                        g.data_ptr(), int(r),
+                                        grad.data_ptr(), stream),
+                    lib, "fold", "launch")
+        fold_backward.launches += 1
         return grad
-    lib = load_library()
-    index, stream = _launch_args(device)
-    _check_cuda(lib.fold_bwd_launch(index, parts.data_ptr(), parts.shape[0],
-                                    rays, dirs.data_ptr(), int(axis),
-                                    g.data_ptr(), int(r), grad.data_ptr(),
-                                    stream), lib, "fold", "launch")
-    fold_backward.launches += 1
-    return grad
 
 
 #: Kernel launches since the count was last reset; a run sets them to 0 and

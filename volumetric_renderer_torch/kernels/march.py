@@ -34,7 +34,8 @@ from volumetric_renderer_torch.core.fused import (
 )
 from volumetric_renderer_torch.core.sampling import check_own
 from volumetric_renderer_torch.kernels import _build
-from volumetric_renderer_torch.utils.device import to_device
+from volumetric_renderer_torch.utils.device import device_key, to_device
+from volumetric_renderer_torch.utils.metrics import span
 
 #: The plain versions: same inputs, same operations in the same order.
 march_forward_plain = march_prepared
@@ -60,14 +61,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                   i, i, i, i,                   # own: axis, start, body, total
                   p, i, p, i, i,                # tf .. width
                   p,                            # window
-                  i, f, i, f, f, p]             # steps .. amax, stream
+                  i, f, i, f, f,                # steps .. amax
+                  p, p]                         # counts, stream
     else:
         launch = [i, p, p, p, p, i, i, i,        # device .. nx
                   i, i, i, i,                    # own: axis, start, body, total
                   p, i,                          # tf, ntf
                   p, p, p, p, i, i, p, i, i,     # out .. width
                   p,                             # window
-                  i, f, i, f, f, f, p]           # steps .. alpha_eps, stream
+                  i, f, i, f, f, f,              # steps .. alpha_eps
+                  p, p]                          # counts, stream
     getattr(lib, f"{name}_launch").restype = i
     getattr(lib, f"{name}_launch").argtypes = launch
     getattr(lib, f"{name}_max_dynamic_smem").restype = i
@@ -267,11 +270,12 @@ def _grid_texture(lib, dev_index: int, vol, stream) -> _GridTexture:
     old = entry.source
     if source is None or old is None or old[0]() is not source[0]() or \
             old[1:] != source[1:]:
-        # a launch on another stream may still read the array
-        torch.cuda.current_stream(vol.device).wait_event(entry.done)
-        _check_cuda(lib.march_fwd_texture_fill(entry.handle, vol.data_ptr(),
-                                               stream),
-                    lib, "march_fwd", "copying the grid into its texture")
+        with span("vr.texture_fill"):
+            # a launch on another stream may still read the array
+            torch.cuda.current_stream(vol.device).wait_event(entry.done)
+            _check_cuda(lib.march_fwd_texture_fill(entry.handle,
+                                                   vol.data_ptr(), stream),
+                        lib, "march_fwd", "copying the grid into its texture")
         entry.source = source
         march_forward.texture_fills += 1
     return entry
@@ -341,24 +345,27 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
                     "carries no graph; differentiate through "
                     "make_kernel_marcher or render(method='kernel'), whose "
                     "backward is the K2 kernel (march_backward)")
-    lib, dev_index, height, width, _ = _check_kernel_inputs(
-        fn, tensors, 16, "march_fwd", device)
-    own = _own_args(fn, own, vol)
-    window = _window(fn, device, dmin, inv_window, smin, smax)
+    with span("vr.k1"):
+        lib, dev_index, height, width, _ = _check_kernel_inputs(
+            fn, tensors, 16, "march_fwd", device)
+        own = _own_args(fn, own, vol)
+        window = _window(fn, device, dmin, inv_window, smin, smax)
 
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    texture = _grid_texture(lib, dev_index, vol, stream)
-    code = lib.march_fwd_launch(
-        dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-        texture.tex, *vol.shape, *own, tf.data_ptr(), tf.shape[0],
-        out.data_ptr(), height, width, window.data_ptr(),
-        int(num_steps), float(step_size), int(bool(early_termination)),
-        float(termination_eps), 1.0 - ALPHA_EPS, stream)
-    _check_cuda(code, lib, "march_fwd", "launch")
-    texture.done.record(torch.cuda.current_stream(device))
-    march_forward.launches += 1
-    return out
+        out = torch.empty((height, width, 4), dtype=torch.float32,
+                          device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        texture = _grid_texture(lib, dev_index, vol, stream)
+        code = lib.march_fwd_launch(
+            dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
+            texture.tex, *vol.shape, *own, tf.data_ptr(), tf.shape[0],
+            out.data_ptr(), height, width, window.data_ptr(),
+            int(num_steps), float(step_size), int(bool(early_termination)),
+            float(termination_eps), 1.0 - ALPHA_EPS,
+            counts.pointer(device, "k1"), stream)
+        _check_cuda(code, lib, "march_fwd", "launch")
+        texture.done.record(torch.cuda.current_stream(device))
+        march_forward.launches += 1
+        return out
 
 
 def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
@@ -387,36 +394,38 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             early_termination=early_termination,
             termination_eps=termination_eps, own=own)
 
-    lib, dev_index, height, width, smem_limit = _check_kernel_inputs(
-        fn, tensors, 16, "march_bwd", device)
-    own = _own_args(fn, own, vol)
-    window = _window(fn, device, dmin, inv_window, smin, smax)
-    blocks = -(-height // 16) * -(-width // 16)
-    # the shared table takes ntf*48 bytes of shared memory, else ntf*16
-    shared_table = (tf.shape[0] * 48 <= smem_limit
-                    and blocks > _one_wave(lib, dev_index, tf.shape[0]))
-    copies = max(1, min(TF_GRAD_COPIES, blocks))
+    with span("vr.k2"):
+        lib, dev_index, height, width, smem_limit = _check_kernel_inputs(
+            fn, tensors, 16, "march_bwd", device)
+        own = _own_args(fn, own, vol)
+        window = _window(fn, device, dmin, inv_window, smin, smax)
+        blocks = -(-height // 16) * -(-width // 16)
+        # the shared table takes ntf*48 bytes of shared memory, else ntf*16
+        shared_table = (tf.shape[0] * 48 <= smem_limit
+                        and blocks > _one_wave(lib, dev_index, tf.shape[0]))
+        copies = max(1, min(TF_GRAD_COPIES, blocks))
 
-    # the TF and window gradients are accumulated in f64, as in the plain
-    # version, and rounded to f32 here
-    vol_g = torch.zeros_like(vol)
-    tf_g = torch.zeros((copies,) + tuple(tf.shape), dtype=torch.float64,
-                       device=device)
-    win_g = torch.zeros(2, dtype=torch.float64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    nz, ny, nx = vol.shape
-    code = lib.march_bwd_launch(
-        dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
-        vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
-        out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
-        copies, int(shared_table), win_g.data_ptr(), height, width,
-        window.data_ptr(),
-        int(num_steps), float(step_size), int(bool(early_termination)),
-        float(termination_eps), 1.0 - ALPHA_EPS, ALPHA_EPS, stream)
-    _check_cuda(code, lib, "march_bwd", "launch")
-    march_backward.launches += 1
-    win_g = win_g.float()
-    return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
+        # the TF and window gradients are accumulated in f64, as in the
+        # plain version, and rounded to f32 here
+        vol_g = torch.zeros_like(vol)
+        tf_g = torch.zeros((copies,) + tuple(tf.shape), dtype=torch.float64,
+                           device=device)
+        win_g = torch.zeros(2, dtype=torch.float64, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        nz, ny, nx = vol.shape
+        code = lib.march_bwd_launch(
+            dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
+            vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
+            out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
+            copies, int(shared_table), win_g.data_ptr(), height, width,
+            window.data_ptr(),
+            int(num_steps), float(step_size), int(bool(early_termination)),
+            float(termination_eps), 1.0 - ALPHA_EPS, ALPHA_EPS,
+            counts.pointer(device, "k2"), stream)
+        _check_cuda(code, lib, "march_bwd", "launch")
+        march_backward.launches += 1
+        win_g = win_g.float()
+        return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
 
 
 #: Kernel launches since the count was last reset; a run sets them to 0 and
@@ -426,6 +435,59 @@ march_backward.launches = 0
 #: Copies of a grid into K1's texture (``_grid_texture``) since the count
 #: was last reset: a timed loop over one unchanged grid should make none.
 march_forward.texture_fills = 0
+
+#: What K1's and K2's counted instantiations count, in the order of their
+#: slots in a device's counter buffer (:class:`KernelCounts`).
+COUNTED = {"k1": ("sampled", "lane_steps"),
+           "k2": ("sampled", "lane_steps", "voxel_atomics", "tf_flushes")}
+
+
+class KernelCounts:
+    """The counts K1 and K2 take on the card while :attr:`on`
+    (``utils.metrics.counting`` sets it): each kernel's :data:`COUNTED` in
+    one int64 buffer per device, K1's slots first.  ``sampled`` counts the
+    steps that composite; ``lane_steps`` 32 times each warp's trips of the
+    step loop (K1: its longest walk); ``voxel_atomics`` K2's ``atomicAdd``
+    on the grid gradient (an in-grid corner of a sample whose density
+    gradient is not 0); ``tf_flushes`` the trips in which K2's warp flushes
+    ended TF-gradient runs.  While off, a launch takes no buffer and runs
+    the kernel's uncounted instantiation."""
+
+    def __init__(self):
+        self.on = False
+        self._buffers = {}
+
+    def pointer(self, device, kernel: str):
+        """The address of ``kernel``'s slots on ``device``, or None (off);
+        the device's buffer is made, zeroed, on its first counted launch."""
+        if not self.on:
+            return None
+        key = device_key(device)
+        if key not in self._buffers:
+            self._buffers[key] = torch.zeros(
+                sum(map(len, COUNTED.values())), dtype=torch.int64,
+                device=key)
+        offset = 0 if kernel == "k1" else len(COUNTED["k1"])
+        return self._buffers[key][offset:].data_ptr()
+
+    def reset(self) -> None:
+        for buffer in self._buffers.values():
+            buffer.zero_()
+
+    def read(self, device) -> dict:
+        """``{"k1": {count: n}, "k2": {...}}`` on ``device`` (waits for
+        it); None for each where no counted launch ran there."""
+        buffer = self._buffers.get(device_key(device))
+        if buffer is None:
+            return dict.fromkeys(COUNTED)
+        values, out = buffer.tolist(), {}
+        for kernel, names in COUNTED.items():
+            out[kernel] = dict(zip(names, values))
+            values = values[len(names):]
+        return out
+
+
+counts = KernelCounts()
 
 
 def make_kernel_marcher(num_steps: int, step_size: float,

@@ -54,10 +54,15 @@ from volumetric_renderer_torch.kernels.fold import (
     over,
 )
 from volumetric_renderer_torch.parallel.mesh import group_info
-from volumetric_renderer_torch.parallel.render import march_views, sum_across
+from volumetric_renderer_torch.parallel.render import (
+    march_views,
+    sum_across,
+    view_groups,
+)
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils import quaternion as quat
 from volumetric_renderer_torch.utils.config import RenderSettings
+from volumetric_renderer_torch.utils.metrics import span
 
 
 def composite_chunks(partials, reverse: bool = False) -> torch.Tensor:
@@ -244,7 +249,7 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
     4)``: one ray setup, one halo exchange (one chunk tensor, so one copy
     into K1's texture), the V views' rays stacked along rows into one
     ``(V*H, W)`` image marched once with a per-ray origin
-    (``parallel.render.march_views``: the fewest groups past
+    (``parallel.render.view_groups``: the fewest groups past
     ``kernels.march.MAX_ROWS``), one ``all_gather`` of the partials and
     the per-ray fold over the stacked image, whose rays may march either
     way along ``axis`` (:class:`_GatherFold`: one fold launch forward and
@@ -268,18 +273,20 @@ def make_depth_sharded_renderer(group, settings: RenderSettings, *, vol_shape,
             raise ValueError("a depth-sharded render needs the whole grid's "
                              "density window (global_window)")
         march = make_marcher(select_method(method, vol_local), settings, own)
-        origin, dirs, dmin, dmax, smin, smax = frame_inputs(
-            vol_local, camera, settings, dmin, dmax, smin, smax)
-        views = tuple(dirs.shape[:-3])          # () for one camera, or (V,)
+        with span("vr.ray_setup"):
+            origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+                vol_local, camera, settings, dmin, dmax, smin, smax)
+            views = tuple(dirs.shape[:-3])      # () for one camera, or (V,)
+            rays = dirs.reshape((-1, h, w, 3))
+            groups = view_groups(origin, rays)
         if world > 1:
             chunk = _HaloExchange.apply(vol_local, axis, group, rank, world)
         else:
             chunk = chunk_of(vol_local, 0, body, axis)   # a zero halo row
         if reduce_grads:
             tf, dmin, dmax = (sum_across(x, group) for x in (tf, dmin, dmax))
-        rays = dirs.reshape((-1, h, w, 3))
-        partial = march_views(march, chunk, tf, origin, rays, dmin, dmax,
-                              smin, smax)               # (V*H, W, 4)
+        partial = march_views(march, chunk, tf, groups, dmin, dmax, smin,
+                              smax)                     # (V*H, W, 4)
         if world > 1:
             partial = _GatherFold.apply(partial, rays.reshape((-1, w, 3)),
                                         axis, group, rank, world)

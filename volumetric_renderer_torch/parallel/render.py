@@ -32,6 +32,7 @@ from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
 from volumetric_renderer_torch.render.api import make_marcher, select_method
 from volumetric_renderer_torch.utils.config import RenderSettings
 from volumetric_renderer_torch.utils.device import constant, per_device
+from volumetric_renderer_torch.utils.metrics import span
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -80,6 +81,18 @@ def sum_across(x, group=None):
     return _SumAcross.apply(x, group)
 
 
+def all_reduce_sum(t: torch.Tensor, group=None) -> None:
+    """``dist.all_reduce`` (a sum) of ``t`` in place, its bytes added to
+    ``all_reduce_sum.bytes`` on the host (``utils.metrics.read_counters``
+    reads them)."""
+    all_reduce_sum.bytes += t.numel() * t.element_size()
+    dist.all_reduce(t, group=group)
+
+
+#: Bytes handed to :func:`all_reduce_sum` since the count was last reset.
+all_reduce_sum.bytes = 0
+
+
 def all_reduce_grads(tensors, group=None) -> None:
     """Sum the ``.grad`` of each tensor across ``group``, in place."""
     _, _, world = group_info(group)
@@ -87,26 +100,30 @@ def all_reduce_grads(tensors, group=None) -> None:
         return
     for t in tensors:
         if t.grad is not None:
-            dist.all_reduce(t.grad, group=group)
+            all_reduce_sum(t.grad, group)
 
 
-def march_views(march, vol, tf, origin, rays, dmin, dmax, smin, smax):
-    """March V views' rays ``rays`` ``(V, rows, W, 3)`` from their eyes
-    ``origin`` (``(V, 3)``, or ``(3,)`` for one view) stacked along rows
-    into one ``(V*rows, W)`` image of rays, with a per-ray origin; returns
-    ``(V*rows, W, 4)``.  ``march`` is a marcher of ``render.api.
-    make_marcher``.  Where the stacked rows pass what one kernel launch
-    takes (``kernels.march.MAX_ROWS``), the views are marched in the
-    fewest groups that fit, one ``march`` call each."""
+def view_groups(origin, rays) -> list:
+    """V views' rays ``rays`` ``(V, rows, W, 3)`` from their eyes ``origin``
+    (``(V, 3)``, or ``(3,)`` for one view), stacked along rows with a
+    per-ray origin for :func:`march_views`: ``(origin (n*rows, 1, 3), rays
+    (n*rows, W, 3))`` for each group of n views.  Where the stacked rows
+    pass what one kernel launch takes (``kernels.march.MAX_ROWS``), the
+    views fall in the fewest groups that fit."""
     n_views, rows, w = rays.shape[:3]
     origin = origin.reshape((-1, 1, 1, 3))
     per = max(1, kernel_march.MAX_ROWS // rows)
-    parts = [
-        march(vol, tf,
-              origin[i:i + per].expand(-1, rows, 1, 3).reshape(-1, 1, 3),
-              rays[i:i + per].reshape(-1, w, 3).contiguous(), dmin, dmax,
-              smin, smax)
-        for i in range(0, n_views, per)]
+    return [(origin[i:i + per].expand(-1, rows, 1, 3).reshape(-1, 1, 3),
+             rays[i:i + per].reshape(-1, w, 3).contiguous())
+            for i in range(0, n_views, per)]
+
+
+def march_views(march, vol, tf, groups, dmin, dmax, smin, smax):
+    """March the groups of :func:`view_groups` with ``march`` (a marcher of
+    ``render.api.make_marcher``), one call each; returns the views stacked
+    along rows, ``(V*rows, W, 4)``."""
+    parts = [march(vol, tf, origin, rays, dmin, dmax, smin, smax)
+             for origin, rays in groups]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -160,19 +177,22 @@ def make_sharded_renderer(group, settings: RenderSettings,
         dev = vol.device
         _, _, pack, unpack, valid = layout_on(dev)
         march = make_marcher(select_method(method, vol), settings)
-        origin, dirs, dmin, dmax, smin, smax = frame_inputs(
-            vol, camera, settings, dmin, dmax, smin, smax)
-        views = tuple(dirs.shape[:-3])          # () for one camera, or (V,)
-        # the views ride through the layout as a channel axis: (H, W, V, 3)
-        dirs = pack(dirs.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
-        if padded:
-            dirs = torch.where(valid[..., None, None] > 0.0, dirs,
-                               constant((0.0, 0.0, 1.0), dev))
-        block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
+        with span("vr.ray_setup"):
+            origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+                vol, camera, settings, dmin, dmax, smin, smax)
+            views = tuple(dirs.shape[:-3])      # () for one camera, or (V,)
+            # the views ride through the layout as a channel axis: (H, W,
+            # V, 3)
+            dirs = pack(dirs.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
+            if padded:
+                dirs = torch.where(valid[..., None, None] > 0.0, dirs,
+                                   constant((0.0, 0.0, 1.0), dev))
+            block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
+            groups = view_groups(origin, block)
         if reduce_grads:
             vol, tf, dmin, dmax = (sum_across(x, group)
                                    for x in (vol, tf, dmin, dmax))
-        img = march_views(march, vol, tf, origin, block, dmin, dmax, smin,
+        img = march_views(march, vol, tf, groups, dmin, dmax, smin,
                           smax).reshape((-1, rows, gw, 4))  # (V, rows, gw, 4)
         if permuted_output:
             return img.reshape(views + (rows, gw, 4))

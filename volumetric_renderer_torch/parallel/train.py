@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from volumetric_renderer_torch.parallel.depth import (
     make_depth_sharded_renderer,
@@ -47,11 +46,13 @@ from volumetric_renderer_torch.parallel.depth import (
 from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
 from volumetric_renderer_torch.parallel.render import (
     all_reduce_grads,
+    all_reduce_sum,
     make_sharded_renderer,
 )
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.utils.config import RenderSettings
 from volumetric_renderer_torch.utils.device import per_device
+from volumetric_renderer_torch.utils.metrics import span
 
 
 class TrainState(NamedTuple):
@@ -98,7 +99,7 @@ def stack_cameras(cameras) -> OrbitCamera:
 
 
 def _clamp(params: dict, optimize_vol: bool, optimize_tf: bool) -> None:
-    with torch.no_grad():
+    with span("vr.clamp"), torch.no_grad():
         if optimize_tf:
             # keep the TF a physical RGBA table (the reference's unorm
             # texture range, offscreen_pass.cpp:1076)
@@ -148,28 +149,33 @@ def make_train_step(settings: RenderSettings, *, optimize_vol: bool,
     layout_on = per_device(layout)
 
     def train_step(state: TrainState, fixed: dict, cameras, targets):
-        params, opt = state.params, state.optimizer
-        vol = params["vol"] if optimize_vol else fixed["vol"]
-        tf = params["tf"] if optimize_tf else fixed["tf"]
-        cams = stack_cameras(cameras)
-        n_views = cams.orientation.shape[0]
-        opt.zero_grad(set_to_none=True)
-        img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
-                        fixed["smin"], fixed["smax"])  # (V, rows, gw, 4)
-        pack, mask = layout_on(img.device)
-        # every view's target packed as the renderer packs its rays
-        target = pack(targets.permute(1, 2, 0, 3))[rank * rows:
-                                                   (rank + 1) * rows]
-        sq = (img - target.permute(2, 0, 1, 3)) ** 2 * mask
-        loss = torch.sum(sq) / float(h * w * 4) / n_views
-        loss.backward()
-        total = loss.detach().clone()
-        all_reduce_grads(params.values(), group)
-        if world > 1:
-            dist.all_reduce(total, group=group)
-        opt.step()
-        _clamp(params, optimize_vol, optimize_tf)
-        return state._replace(step=state.step + 1), total
+        with span("vr.train_step"):
+            params, opt = state.params, state.optimizer
+            vol = params["vol"] if optimize_vol else fixed["vol"]
+            tf = params["tf"] if optimize_tf else fixed["tf"]
+            cams = stack_cameras(cameras)
+            n_views = cams.orientation.shape[0]
+            opt.zero_grad(set_to_none=True)
+            img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
+                            fixed["smin"], fixed["smax"])  # (V, rows, gw, 4)
+            with span("vr.loss"):
+                pack, mask = layout_on(img.device)
+                # every view's target packed as the renderer packs its rays
+                target = pack(targets.permute(1, 2, 0, 3))[
+                    rank * rows:(rank + 1) * rows]
+                sq = (img - target.permute(2, 0, 1, 3)) ** 2 * mask
+                loss = torch.sum(sq) / float(h * w * 4) / n_views
+            with span("vr.backward"):
+                loss.backward()
+            with span("vr.grad_sum"):
+                total = loss.detach().clone()
+                all_reduce_grads(params.values(), group)
+                if world > 1:
+                    all_reduce_sum(total, group)
+            with span("vr.optimizer"):
+                opt.step()
+            _clamp(params, optimize_vol, optimize_tf)
+            return state._replace(step=state.step + 1), total
 
     return train_step
 
@@ -202,21 +208,27 @@ def make_depth_train_step(settings: RenderSettings, *, optimize_vol: bool,
                                             method=method, reduce_grads=False)
 
     def train_step(state: TrainState, fixed: dict, cameras, targets):
-        params, opt = state.params, state.optimizer
-        vol = params["vol"] if optimize_vol else fixed["vol"]
-        tf = params["tf"] if optimize_tf else fixed["tf"]
-        cams = stack_cameras(cameras)
-        n_views = cams.orientation.shape[0]
-        opt.zero_grad(set_to_none=True)
-        img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
-                        fixed["smin"], fixed["smax"])       # (V, H, W, 4)
-        loss = torch.sum((img - targets) ** 2) / float(n_views * h * w * 4)
-        loss.backward()
-        if optimize_tf:
-            all_reduce_grads([params["tf"]], group)
-        opt.step()
-        _clamp(params, optimize_vol, optimize_tf)
-        return state._replace(step=state.step + 1), loss.detach()
+        with span("vr.train_step"):
+            params, opt = state.params, state.optimizer
+            vol = params["vol"] if optimize_vol else fixed["vol"]
+            tf = params["tf"] if optimize_tf else fixed["tf"]
+            cams = stack_cameras(cameras)
+            n_views = cams.orientation.shape[0]
+            opt.zero_grad(set_to_none=True)
+            img = render_fn(vol, tf, cams, fixed["dmin"], fixed["dmax"],
+                            fixed["smin"], fixed["smax"])   # (V, H, W, 4)
+            with span("vr.loss"):
+                loss = torch.sum((img - targets) ** 2) / float(
+                    n_views * h * w * 4)
+            with span("vr.backward"):
+                loss.backward()
+            if optimize_tf:
+                with span("vr.grad_sum"):
+                    all_reduce_grads([params["tf"]], group)
+            with span("vr.optimizer"):
+                opt.step()
+            _clamp(params, optimize_vol, optimize_tf)
+            return state._replace(step=state.step + 1), loss.detach()
 
     return train_step
 

@@ -33,6 +33,7 @@ from volumetric_renderer_torch.kernels.march import make_kernel_marcher
 from volumetric_renderer_torch.scene.camera import OrbitCamera
 from volumetric_renderer_torch.utils.config import RenderSettings
 from volumetric_renderer_torch.utils.device import as_device
+from volumetric_renderer_torch.utils.metrics import span
 
 METHODS = ("auto", "oracle", "fused", "kernel")
 
@@ -126,9 +127,10 @@ def render(
         from volumetric_renderer_torch.utils.color import linearize_tf_table
 
         tf_table = linearize_tf_table(tf_table)
-    origin, dirs, dmin, dmax, smin, smax = frame_inputs(
-        vol, camera, settings, density_min, density_max, slice_min, slice_max
-    )
+    with span("vr.ray_setup"):
+        origin, dirs, dmin, dmax, smin, smax = frame_inputs(
+            vol, camera, settings, density_min, density_max, slice_min,
+            slice_max)
     return make_marcher(method, settings)(vol, tf_table, origin, dirs, dmin,
                                           dmax, smin, smax)
 

@@ -1,4 +1,4 @@
-"""Observability: throughput meters, phase timing, profiler hooks.
+"""Observability: throughput meters, phase timing, spans and counters.
 
 The reference's only instrumentation is a 5-sample moving-average FPS
 counter shown in the status bar (``src/application.cpp:102-122``,
@@ -10,12 +10,22 @@ counter shown in the status bar (``src/application.cpp:102-122``,
   train step), aggregated into a structured report;
 * :func:`time_calls` and :func:`spread` — per-call times (CUDA events on a
   card) and their median with min, quartiles and max, for the harnesses;
-* :func:`trace` — a ``torch.profiler`` trace of CPU and CUDA activity,
-  written as a Chrome trace for deep dives.
+* :func:`span` — a named range of a ``torch.profiler`` trace where one is
+  being collected, and nothing otherwise.  The main path opens one at each
+  layer boundary of a frame and a train step (``vr.train_step``,
+  ``vr.ray_setup``, ``vr.k1``, ``vr.texture_fill``, ``vr.loss``,
+  ``vr.backward``, ``vr.k2``, ``vr.fold``, ``vr.grad_sum``,
+  ``vr.optimizer``, ``vr.clamp``), so that each device entry of a trace
+  can be tied to the layer whose host code launched it;
+* :func:`counting` and :func:`read_counters` — the work counted inside K1
+  and K2 (their counted instantiations), the bytes handed to the
+  all-reduce, and the launch counters the wrappers keep.
 
-The meters read wall clocks.  Work queued on a CUDA device is inside a span
-only once something in it waits for the device: the optimize loop's
-``float(loss)`` does, every step.
+The meters read wall clocks.  Work queued on a CUDA device is inside a
+timer's phase only once something in it waits for the device: the
+optimize loop's ``float(loss)`` does, every step.  A span's device work is
+found in the trace, by the profiler's link from each launch to its device
+entry.
 """
 
 from __future__ import annotations
@@ -24,7 +34,6 @@ import collections
 import contextlib
 import json
 import logging
-import os
 import time
 from typing import Dict, Iterator, Optional
 
@@ -103,8 +112,23 @@ def spread(times) -> Dict[str, float]:
             "max": float(max(times)), "n": len(times)}
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler is
+    collecting, else one shared null context: with tracing off a span costs
+    a flag test, and no dispatcher call or allocation.  The flag is the
+    profiler's process-wide one, so a span opened on autograd's device
+    thread (K2's wrapper runs there) is recorded too."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 class PhaseTimers:
-    """Named wall-clock accumulators for pipeline phases."""
+    """Named wall-clock accumulators for pipeline phases; each phase is
+    also a :func:`span` of its name."""
 
     def __init__(self):
         self.totals: Dict[str, float] = collections.defaultdict(float)
@@ -114,7 +138,8 @@ class PhaseTimers:
     def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -134,16 +159,43 @@ class PhaseTimers:
 
 
 @contextlib.contextmanager
-def trace(logdir: str) -> Iterator[torch.profiler.profile]:
-    """``torch.profiler`` span over CPU and (where present) CUDA activity;
-    writes ``logdir/trace.json`` (Chrome trace format) when it closes."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+def counting() -> Iterator[None]:
+    """Count the program's work in the block: every counter that
+    :func:`read_counters` reads is reset on entry, and K1 and K2 launch
+    their counted instantiations (``kernels.march.KernelCounts``) until the
+    block ends.  Outside it they launch the uncounted ones."""
+    from volumetric_renderer_torch.kernels import fold, march
+    from volumetric_renderer_torch.parallel import render
+
+    march.counts.reset()
+    march.march_forward.launches = march.march_backward.launches = 0
+    march.march_forward.texture_fills = 0
+    fold.fold_forward.launches = fold.fold_backward.launches = 0
+    render.all_reduce_sum.bytes = 0
+    march.counts.on = True
+    try:
+        yield
+    finally:
+        march.counts.on = False
+
+
+def read_counters(device) -> dict:
+    """The counts since :func:`counting` last reset them: ``k1`` and ``k2``,
+    the kernels' counts on ``device`` (None where no counted launch ran
+    there; reading them waits for the card), ``nccl_bytes``, the bytes this
+    process handed to the all-reduce (``parallel.render.all_reduce_sum``),
+    and the wrappers' launch counters: ``k1_launches``, ``k2_launches``,
+    ``fold_launches`` and ``texture_fills``."""
+    from volumetric_renderer_torch.kernels import fold, march
+    from volumetric_renderer_torch.parallel import render
+
+    return dict(march.counts.read(device),
+                nccl_bytes=render.all_reduce_sum.bytes,
+                k1_launches=march.march_forward.launches,
+                k2_launches=march.march_backward.launches,
+                fold_launches=(fold.fold_forward.launches
+                               + fold.fold_backward.launches),
+                texture_fills=march.march_forward.texture_fills)
 
 
 def configure_logging(level: int = logging.INFO) -> None:
