@@ -28,7 +28,10 @@ one K1 and one K2 launch a step (the depth step one copy into K1's
 texture), and one step of each (config 4; config 5 depth with 4 views on
 two opposing arcs) is held against a loop of one march per view built
 here.  It also holds K1 and K2 against their plain versions on one
-config-4 view and on both steps' stacked rays, launches both kernels under
+config-4 view and on both steps' stacked rays, K2's grid-only
+instantiation (a grid fit's) against its plain version on config 4's
+stacked rays over a noisy grid, timed beside the full one there (phase
+``k2_grid_only_fit_shape``), launches both kernels under
 ``torch.cuda.set_sync_debug_mode("error")``, and computes each kernel's
 bound from the steps its inputs make it sample.  The phase
 ``no_host_waits`` runs a second call of each main path (the reference
@@ -104,6 +107,9 @@ OPS_PER_STEP = {"march_fwd": 98, "march_bwd": 186}
 # each chunk's backward within FOLD_KERNEL_REL of the largest gradient (the
 # closed form rounds T and the fold behind another way than autograd).
 FOLD_VIEWS, FOLD_KERNEL_REL = 8, 1e-6
+# K2 at a grid fit's launch: the noise on the grid (phase
+# k2_grid_only_fit_shape), and the gradients a grid fit asks for
+FIT_NOISE, GRID_ONLY = 0.05, (True, False, False)
 
 
 def emit(**obj):
@@ -1388,7 +1394,41 @@ def main() -> int:
     check(k1_stacked_equal, "config-4 stacked rays: K1 differs from plain")
     check(ok4s, f"config-4 stacked rays: K2 vs plain {errs4s}")
     bwd_small_err = max(bwd_small_err, *errs4s.values())
-    del args4s, out4s, g4s, pos0, dirs, hit
+    # K2 at a grid fit's launch: the same stacked rays on a grid with the
+    # noise Adam leaves in it (a step of lr 5e-2 moves a voxel by up to
+    # 0.05, ~13 texels of the window), where the TF runs break at almost
+    # every step.  The fit asks for the grid's gradient alone, so K2 runs
+    # its grid-only instantiation: against the plain version, and timed
+    # beside the full instantiation on the same inputs
+    noisy = (vol + FIT_NOISE * torch.randn(
+        vol.shape, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(16))).clamp_(0.0, 1.0)
+    args_fit = (noisy,) + args4s[1:]
+    out_fit = march_forward(*args_fit, **march4)
+    grid_only = dict(march4, needs=GRID_ONLY)
+    fit_vol_g = march_backward(*args_fit, out_fit, g4s, **grid_only)[0]
+    fit_plain = march_backward_plain(*args_fit, out_fit, g4s, **grid_only)
+    fit_err = float((fit_vol_g - fit_plain[0]).abs().max())
+    fit_ok = bool(torch.isfinite(fit_vol_g).all()) and bool(torch.allclose(
+        fit_vol_g, fit_plain[0], atol=BWD_ATOL, rtol=BWD_RTOL))
+    k2_fit = dict(
+        shape=list(hit.shape), noise=FIT_NOISE, max_abs_err=fit_err,
+        # ET off: the noise moves no sample, so the bound is config 4's
+        bound_ms=stacked4["bounds"]["march_bwd"][0])
+    for mode, kw in (("grid_only", grid_only), ("full", march4)):
+        k2_fit[f"{mode}_ms"] = cuda_ms(
+            lambda kw=kw: march_backward(*args_fit, out_fit, g4s, **kw), 5)
+        k2_fit[f"{mode}_device_ms"] = device_ms(
+            lambda kw=kw: march_backward(*args_fit, out_fit, g4s, **kw), 5,
+            "march_bwd_kernel")[0]
+    emit(phase="k2_grid_only_fit_shape", gpu=gpu, nvidia_smi=smi,
+         atol=BWD_ATOL, rtol=BWD_RTOL, **k2_fit)
+    check(fit_plain[1:] == (None, None, None),
+          "grid-only plain backward returned TF or window gradients")
+    check(fit_ok, f"fit's launch: grid-only K2 vs plain {fit_err}")
+    bwd_small_err = max(bwd_small_err, fit_err)
+    del args4s, out4s, g4s, pos0, dirs, hit, noisy, args_fit, out_fit, \
+        fit_vol_g, fit_plain
 
     # both kernels at config 3 with every input on the card: a launch that
     # waited on the device would raise under sync-debug mode "error"
@@ -1787,6 +1827,7 @@ def main() -> int:
          "config4_step": {k: stacked4[k] for k in ("k2_ms", "k2_device_ms",
                                                    "k2_shared_table")}
          | {"bound_ms": stacked4["bounds"]["march_bwd"][0]},
+         "grid_only_fit_shape": k2_fit,
          "config5_depth_step": {
              "ms": depth5d["k2_ms"], "device_ms": depth5d["k2_device_ms"],
              "plain_ms": depth5d["k2_plain_ms"],

@@ -37,7 +37,12 @@ import torch
 
 from volumetric_renderer_torch.core.marcher import prepare_rays
 from volumetric_renderer_torch.data.volume import Volume
-from volumetric_renderer_torch.core.fused import make_fused_marcher
+from volumetric_renderer_torch.core import fused
+from volumetric_renderer_torch.core.fused import (
+    MarchFunction,
+    make_fused_marcher,
+    march_prepared,
+)
 from volumetric_renderer_torch.kernels import _build, march
 from volumetric_renderer_torch.kernels import fold as kfold
 from volumetric_renderer_torch.kernels.march import (
@@ -172,9 +177,10 @@ def test_march_backward_on_cpu_is_the_plain_version(name):
         assert torch.isfinite(a).all()
 
 
-def leaf_grads(marcher, name, device):
+def leaf_grads(marcher, name, device, wanted=(True, True, True, True)):
     """``(img, [vol_g, tf_g, dmin_g, dmax_g])`` of ``sum(img * g)`` for one
-    case, through ``marcher`` (a fused or kernel marcher)."""
+    case, through ``marcher`` (a fused or kernel marcher); only the leaves
+    ``wanted`` require grad (the others' ``.grad`` is None)."""
     c = case_params(name)
     dev = torch.device(device)
     origin, dirs = ray_grid(OrbitCamera.from_angles(*c["camera"]).to(dev),
@@ -183,8 +189,8 @@ def leaf_grads(marcher, name, device):
               torch.from_numpy(c["tf"]).to(dev),
               torch.tensor(c["window"][0], device=dev),
               torch.tensor(c["window"][1], device=dev)]
-    for x in leaves:
-        x.requires_grad_(True)
+    for x, want in zip(leaves, wanted):
+        x.requires_grad_(want)
     smin, smax = (torch.tensor(v, dtype=torch.float32, device=dev)
                   for v in c["slicing"])
     img = marcher(**c["march"])(leaves[0], leaves[1], origin + 0.5, dirs,
@@ -203,6 +209,99 @@ def test_kernel_marcher_on_cpu_is_the_fused_marcher():
     np.testing.assert_array_equal(img.numpy(), img_f.numpy())
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("wanted", [
+    (True, False, False, False), (True, True, False, False),
+    (True, False, True, False), (False, True, False, True),
+    (False, False, True, True)])
+def test_march_function_asks_its_backward_for_the_wanted_grads(wanted):
+    """``MarchFunction`` hands its backward (keyword ``needs``) which of
+    ``(vol, tf, window)`` autograd wants (the window where either of
+    ``dmin``, ``dmax`` requires grad); the plain backward returns None for
+    the others, and every wanted gradient equals the full path's bit for
+    bit: the plain version takes the same steps either way."""
+    asked = []
+
+    def backward(*args, needs, **kw):
+        asked.append(needs)
+        got = fused.march_backward_prepared(*args, **kw, needs=needs)
+        assert [x is not None for x in got] == [*needs, needs[2]]
+        return got
+
+    def marcher(**kw):
+        return lambda *a: MarchFunction.apply(march_prepared, backward, kw,
+                                              *a)
+
+    img, got = leaf_grads(marcher, "slicing", "cpu", wanted)
+    assert asked == [(wanted[0], wanted[1], wanted[2] or wanted[3])]
+    img_f, want = leaf_grads(make_fused_marcher, "slicing", "cpu")
+    np.testing.assert_array_equal(img.numpy(), img_f.numpy())
+    for what, a, b, w in zip(("vol", "tf", "dmin", "dmax"), got, want,
+                             wanted):
+        if not w:
+            assert a is None, what
+            continue
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=what)
+
+
+def fit_step(optimize_tf: bool, device):
+    """One world-of-one pixel train step that fits the grid (and the TF
+    where ``optimize_tf``) at a tiny size on ``device``, through
+    ``method="auto"``: the plain marcher on the CPU, K1 and K2 on a card.
+    Returns ``step()``, which runs one step and returns its loss."""
+    from volumetric_renderer_torch import models
+    from volumetric_renderer_torch.parallel.train import (
+        init_state,
+        make_train_step,
+        stack_cameras,
+    )
+
+    dev = torch.device(device)
+    vol = torch.from_numpy(models.sphere(8).data).to(dev)
+    tf = torch.from_numpy(Gradient.grayscale_ramp().discretize(16)).to(dev)
+    settings = RenderSettings(height=8, width=8, step_size=0.2,
+                              early_termination=False, tf_resolution=16)
+    cams = stack_cameras([OrbitCamera.from_angles(yaw_deg=y, pitch_deg=20.0)
+                          for y in (30.0, 200.0)]).to(dev)
+    targets = torch.rand((2, 8, 8, 4), generator=torch.Generator()
+                         .manual_seed(0)).to(dev)
+    fixed = dict(vol=vol, tf=tf, dmin=vol.min(), dmax=vol.max(),
+                 smin=torch.zeros(3, device=dev),
+                 smax=torch.ones(3, device=dev))
+    params = {"vol": torch.full(vol.shape, 0.3, device=dev)}
+    if optimize_tf:
+        params["tf"] = tf.clone()
+    step_fn = make_train_step(settings, optimize_vol=True,
+                              optimize_tf=optimize_tf,
+                              row_layout="tile-cyclic")
+    box = [init_state(params, lambda p: torch.optim.Adam(p, lr=1e-2))]
+
+    def step():
+        box[0], loss = step_fn(box[0], fixed, cams, targets)
+        return loss
+
+    return step
+
+
+@pytest.mark.parametrize("optimize_tf", [False, True])
+def test_train_step_asks_the_backward_for_what_it_fits(monkeypatch,
+                                                       optimize_tf):
+    """A pixel train step asks the march's backward for the grid's gradient
+    alone where it fits the grid alone, and for the TF's too where it fits
+    both; never for the window's, which is fixed."""
+    asked = []
+    plain = fused.march_backward_prepared
+
+    def backward(*args, needs, **kw):
+        asked.append(needs)
+        return plain(*args, **kw, needs=needs)
+
+    monkeypatch.setattr(fused, "march_backward_prepared", backward)
+    step = fit_step(optimize_tf, "cpu")
+    for _ in range(2):
+        assert torch.isfinite(step())
+    assert asked == [(True, optimize_tf, False)] * 2
 
 
 # depth chunks: (view, axis, chunks, chunk) -- one view marching each way
@@ -447,13 +546,21 @@ def test_cpu_stand_in_fails_a_skipped_collective_instead_of_hanging(
     assert (got, out.value) == (code, value)
 
 
-def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False,
+#: K2's ``table`` by the names the tests give it.
+TABLES = {"global": march.GLOBAL_TABLE, "shared": march.SHARED_TABLE,
+          "none": march.NO_TABLE}
+
+
+def cpu_launch(libs, args, kw, out=None, g=None, table="global",
                counts=None):
     """K1 (``out`` None) or K2 on CPU tensors, through the C interface the
     wrapper calls; returns what ``march_forward`` / ``march_backward``
-    would.  K2 sums its TF gradient in shared memory first with
-    ``shared_table``, and adds into 3 copies of it in any case.  With
-    ``counts``, the address of the kernel's slots in a counter buffer
+    would.  K2 sums its TF gradient in shared memory first with ``table``
+    "shared", directly in global memory with "global", and adds into 3
+    copies of it in either case; with "none" (the grid-only instantiation)
+    it computes the grid's gradient alone, gets null pointers for the TF's
+    and the window's, and returns None for them.  With ``counts``, the
+    address of the kernel's slots in a counter buffer
     (``march.KernelCounts.pointer``), the launch runs the kernel's counted
     instantiation, which adds to them."""
     vol, tf, pos0, dirs, hit = args[:5]
@@ -480,18 +587,25 @@ def cpu_launch(libs, args, kw, out=None, g=None, shared_table=False,
     head = (*rays, vol.data_ptr(), *tail)
     g = g.contiguous()
     vol_g = torch.zeros_like(vol)
+    if table == "none":
+        code = libs["march_bwd"].march_bwd_launch(
+            *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), None, 0,
+            TABLES[table], None, h, w, window.data_ptr(), *steps,
+            march.ALPHA_EPS, counts, None)
+        assert code == 0
+        return vol_g, None, None, None
     tf_g = torch.zeros((3,) + tuple(tf.shape), dtype=torch.float64)
     win_g = torch.zeros(2, dtype=torch.float64)
     code = libs["march_bwd"].march_bwd_launch(
         *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(),
-        tf_g.data_ptr(), 3, int(shared_table), win_g.data_ptr(), h, w,
+        tf_g.data_ptr(), 3, TABLES[table], win_g.data_ptr(), h, w,
         window.data_ptr(), *steps, march.ALPHA_EPS, counts, None)
     assert code == 0
     win_g = win_g.float()
     return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
 
 
-@pytest.mark.parametrize("table", ["shared", "global"])
+@pytest.mark.parametrize("table", ["shared", "global", "none"])
 @pytest.mark.parametrize("name,own", [
     ("orient_30_20", None), ("early_termination", None), ("slicing", None),
     ("nan_voxel", None), ("orient_30_20", (0, 2, 1)),
@@ -523,8 +637,10 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
                                                      own, table):
     """The CUDA sources, compiled by g++ for the CPU, against the plain
     versions: K1 bit for bit, K2 within its bars with its TF gradient
-    summed in either table (shared memory, or global memory directly), on
-    the whole volume and on depth chunks ``own = (axis, chunks, chunk)``."""
+    summed in either table (shared memory, or global memory directly), or
+    in its grid-only instantiation (no table: the grid's gradient alone,
+    against the plain version asked for that alone), on the whole volume
+    and on depth chunks ``own = (axis, chunks, chunk)``."""
     if own is None:
         args, kw = case_inputs(name, "cpu")
     else:
@@ -533,10 +649,14 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
     want = march_forward_plain(*args, **kw)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     g = cotangent(args)
+    needs = (True, table != "none", table != "none")
     for what, a, b in zip(("vol", "tf", "dmin", "dmax"),
-                          cpu_launch(cpu_kernels, args, kw, want, g,
-                                     shared_table=table == "shared"),
-                          march_backward_plain(*args, want, g, **kw)):
+                          cpu_launch(cpu_kernels, args, kw, want, g, table),
+                          march_backward_plain(*args, want, g, **kw,
+                                               needs=needs)):
+        if b is None:
+            assert a is None and what != "vol", what
+            continue
         assert a.shape == b.shape, what
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
                                    rtol=BWD_RTOL, err_msg=what)
@@ -598,14 +718,15 @@ def test_chunk_cases_have_rays_with_an_empty_step_interval():
     assert ((k_end - k_begin > 0) & hit).sum() > 100
 
 
-def k2_walks(libs, args, kw):
+def k2_walks(libs, args, kw, table="global"):
     """``(first, last, count)`` per pixel: the steps K2 (the g++ build)
-    walked on each ray in one launch, as the CPU stand-in records them
-    (``MARCH_WALKED_STEP``); -1, -1, 0 where a ray walked none."""
+    walked on each ray in one launch with ``table`` (as ``cpu_launch``), as
+    the CPU stand-in records them (``MARCH_WALKED_STEP``); -1, -1, 0 where a
+    ray walked none."""
     lib = libs["march_bwd"]
     lib.emul_walk_reset()
     cpu_launch(libs, args, kw, march_forward_plain(*args, **kw),
-               cotangent(args))
+               cotangent(args), table)
     hit = args[4]
     walks = [np.empty(hit.shape, np.int32) for _ in range(3)]
     lib.emul_walks(hit.numel(), *(w.ctypes.data for w in walks))
@@ -641,6 +762,21 @@ def test_k2_walks_only_the_steps_of_owned_steps(cpu_kernels, name, own):
         # rays a walk from step 0 would get wrong: they start past it, or
         # own no step at all
         assert (hit & ((k_begin > 0) | (k_end == k_begin))).sum() > 100
+
+
+@pytest.mark.parametrize("name,own", [
+    ("orient_30_20", None), ("orient_200_5", None), ("close_wide_fov", None),
+    ("graze_faces", (2, 4, 1)), ("near_constant_et", (0, 4, 2))])
+def test_grid_only_k2_walks_as_the_full_one(cpu_kernels, name, own):
+    """K2's grid-only instantiation, whose step loop votes only on its end,
+    walks every ray over the steps the full one walks."""
+    args, kw = (case_inputs(name, "cpu") if own is None
+                else own_inputs(name, *own, "cpu"))
+    want = k2_walks(cpu_kernels, args, kw)
+    got = k2_walks(cpu_kernels, args, kw, "none")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert (want[2] > 0).sum() > 100
 
 
 def test_k2_chunk_edge_cases_reach_their_edge():
@@ -803,6 +939,50 @@ def test_backward_kernel_matches_plain_on_cuda(cuda, name):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=BWD_ATOL, rtol=BWD_RTOL,
                                    err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_grid_only_backward_kernel_matches_plain_on_cuda(cuda, name):
+    """K2 asked for the grid's gradient alone runs its grid-only
+    instantiation (one launch, counted in ``grid_only_launches``) and
+    returns None for the TF's and the window's; the grid's lies within
+    K2's bars of the plain version's."""
+    args, kw = case_inputs(name, cuda)
+    out = march_forward(*args, **kw)
+    g = cotangent(args)
+    needs = (True, False, False)
+    before = (march_backward.launches, march_backward.grid_only_launches)
+    got = march_backward(*args, out, g, **kw, needs=needs)
+    assert (march_backward.launches, march_backward.grid_only_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = march_backward_plain(*args, out, g, **kw, needs=needs)
+    torch.cuda.synchronize()
+    assert got[1:] == (None, None, None) and want[1:] == (None, None, None)
+    assert got[0].shape == want[0].shape and got[0].dtype == torch.float32
+    assert torch.isfinite(got[0]).all()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    full = march_backward(*args, out, g, **kw)
+    assert march_backward.grid_only_launches == before[1] + 1
+    np.testing.assert_allclose(got[0].cpu().numpy(), full[0].cpu().numpy(),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimize_tf", [False, True])
+def test_grid_fit_step_takes_the_grid_only_k2_on_cuda(cuda, optimize_tf):
+    """A pixel train step on the card that fits the grid alone launches
+    K2's grid-only instantiation, once a step; one that fits the TF too
+    launches the full one."""
+    step = fit_step(optimize_tf, cuda)
+    assert torch.isfinite(step())
+    before = (march_backward.launches, march_backward.grid_only_launches)
+    for _ in range(2):
+        assert torch.isfinite(step())
+    assert march_backward.launches == before[0] + 2
+    assert march_backward.grid_only_launches == \
+        before[1] + (0 if optimize_tf else 2)
 
 
 @pytest.mark.cuda

@@ -307,12 +307,12 @@ def test_counted_kernels_compiled_for_cpu_count_what_plain_counts(
     args, kw = inputs(name, own)
     g = cotangent(args)
     out = cpu_launch(cpu_kernels, args, kw)
-    grads = cpu_launch(cpu_kernels, args, kw, out, g, shared_table=True)
+    grads = cpu_launch(cpu_kernels, args, kw, out, g, table="shared")
     with metrics.counting():
         counted_out = cpu_launch(cpu_kernels, args, kw,
                                  counts=march.counts.pointer("cpu", "k1"))
         counted_grads = cpu_launch(
-            cpu_kernels, args, kw, out, g, shared_table=True,
+            cpu_kernels, args, kw, out, g, table="shared",
             counts=march.counts.pointer("cpu", "k2"))
     assert torch.equal(counted_out, out)
     for a, b in zip(counted_grads, grads):
@@ -325,6 +325,29 @@ def test_counted_kernels_compiled_for_cpu_count_what_plain_counts(
     assert want["k1"]["lane_steps"] > want["k1"]["sampled"] > 0
 
 
+@pytest.mark.parametrize("name,own", COUNT_CASES)
+def test_counted_grid_only_k2_compiled_for_cpu_counts_what_plain_counts(
+        cpu_kernels, monkeypatch, name, own):
+    """K2's counted grid-only instantiation (the g++ build) counts the
+    samples, lane steps and voxel atomics of :func:`plain_counts` and no TF
+    flush, and gives the grid's gradient of the uncounted one within K2's
+    bars."""
+    monkeypatch.setattr(march, "counts", march.KernelCounts())
+    args, kw = inputs(name, own)
+    g = cotangent(args)
+    out = cpu_launch(cpu_kernels, args, kw)
+    grads = cpu_launch(cpu_kernels, args, kw, out, g, table="none")
+    with metrics.counting():
+        counted = cpu_launch(cpu_kernels, args, kw, out, g, table="none",
+                             counts=march.counts.pointer("cpu", "k2"))
+    assert counted[1:] == (None, None, None)
+    np.testing.assert_allclose(counted[0].numpy(), grads[0].numpy(),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    want = dict(plain_counts(args, kw, g)["k2"], tf_flushes=0)
+    assert metrics.read_counters("cpu")["k2"] == want
+    assert want["voxel_atomics"] > 0
+
+
 def test_counting_resets_the_counters_and_is_off_outside_its_block(
         cpu_kernels, monkeypatch):
     """``counting`` resets every counter ``read_counters`` reads and lets a
@@ -335,13 +358,14 @@ def test_counting_resets_the_counters_and_is_off_outside_its_block(
     assert march.counts.pointer("cpu", "k1") is None
     assert metrics.read_counters("cpu")["k1"] is None
     monkeypatch.setattr(march.march_forward, "launches", 5)
+    monkeypatch.setattr(march.march_backward, "grid_only_launches", 3)
     monkeypatch.setattr(march.march_forward, "texture_fills", 2)
     monkeypatch.setattr(prender.all_reduce_sum, "bytes", 7)
     args, kw = case_inputs("orient_30_20", "cpu")
     with metrics.counting():
         got = metrics.read_counters("cpu")
-        assert (got["k1_launches"], got["texture_fills"],
-                got["nccl_bytes"]) == (0, 0, 0)
+        assert (got["k1_launches"], got["k2_grid_only_launches"],
+                got["texture_fills"], got["nccl_bytes"]) == (0, 0, 0, 0)
         cpu_launch(cpu_kernels, args, kw,
                    counts=march.counts.pointer("cpu", "k1"))
     counted = metrics.read_counters("cpu")
@@ -462,6 +486,35 @@ def test_counted_kernels_count_what_plain_counts_on_cuda(cuda, monkeypatch,
     march.march_forward(*dev_args, **kw)
     march.march_backward(*dev_args, out, g.to(cuda), **kw)
     assert {k: metrics.read_counters(cuda)[k] for k in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,own", [("orient_30_20", None),
+                                      ("early_termination", None),
+                                      ("near_constant", (0, 4, 1))])
+def test_counted_grid_only_k2_counts_what_plain_counts_on_cuda(
+        cuda, monkeypatch, name, own):
+    """K2's grid-only instantiation through its wrapper on the card (the
+    grid's gradient alone asked for): counted, it counts the samples, lane
+    steps and voxel atomics of :func:`plain_counts` and no TF flush, and
+    gives the uncounted launch's grid gradient within K2's bars."""
+    monkeypatch.setattr(march, "counts", march.KernelCounts())
+    args, kw = inputs(name, own)
+    g = cotangent(args).to(cuda)
+    dev_args = tuple(x.to(cuda) if torch.is_tensor(x) else x for x in args)
+    out = march.march_forward(*dev_args, **kw)
+    needs = (True, False, False)
+    grads = march.march_backward(*dev_args, out, g, **kw, needs=needs)
+    with metrics.counting():
+        counted = march.march_backward(*dev_args, out, g, **kw, needs=needs)
+        got = metrics.read_counters(cuda)
+    assert grads[1:] == counted[1:] == (None, None, None)
+    np.testing.assert_allclose(counted[0].cpu().numpy(),
+                               grads[0].cpu().numpy(), atol=BWD_ATOL,
+                               rtol=BWD_RTOL)
+    assert got["k2"] == dict(plain_counts(args, kw, g.cpu())["k2"],
+                             tf_flushes=0)
+    assert (got["k2_launches"], got["k2_grid_only_launches"]) == (1, 1)
 
 
 if __name__ == "__main__":

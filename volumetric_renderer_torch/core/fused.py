@@ -118,10 +118,15 @@ def _dot(a, b, n=3):
     return out
 
 
+#: Which of ``(vol, tf, window)`` a backward computes, where nothing says
+#: otherwise: all three.
+ALL_GRADS = (True, True, True)
+
+
 def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
                             smax, out, g, *, num_steps: int, step_size: float,
                             early_termination: bool, termination_eps: float,
-                            own=None):
+                            own=None, needs=ALL_GRADS):
     """The re-march backward over prepared rays (the plain version of K2).
 
     ``out`` is the forward's RGBA and ``g`` its cotangent, both
@@ -136,7 +141,12 @@ def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
     (~1e6 terms in one TF texel at 96x96 pixels and 128 steps); f32 in an
     arbitrary order loses ~1e-4 relative there, so they are accumulated in
     float64, here and in K2, and returned as float32.
+
+    ``needs = (vol, tf, window)`` says which gradients are wanted; the
+    others are returned as ``None``.  Without the TF's and the window's
+    their sums are not taken; the grid's is the same either way.
     """
+    want_vol, want_tf, want_win = map(bool, needs)
     own = check_own(own, tuple(vol.shape))
     amax = 1.0 - ALPHA_EPS
     dev = dirs.device
@@ -187,18 +197,22 @@ def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
 
         # TF-table scatter: the transpose of the 2-bin lerp fetch.
         g_rgba = torch.cat([dl_dc, dl_da[..., None]], dim=-1)
-        flat_g = g_rgba.reshape(-1, 4)
-        flat_w = w.reshape(-1, 1)
-        tf_g.index_add_(0, lo.reshape(-1), (flat_g * (1.0 - flat_w)).to(f64))
-        tf_g.index_add_(0, hi.reshape(-1), (flat_g * flat_w).to(f64))
+        if want_tf:
+            flat_g = g_rgba.reshape(-1, 4)
+            flat_w = w.reshape(-1, 1)
+            tf_g.index_add_(0, lo.reshape(-1),
+                            (flat_g * (1.0 - flat_w)).to(f64))
+            tf_g.index_add_(0, hi.reshape(-1), (flat_g * flat_w).to(f64))
 
         # Density gradient through the lerp: d rgba / dt = (hi - lo) * N.
         dl_dt = _dot(g_rgba, (tf_hi - tf_lo) * n, 4)
         dl_dt = torch.where(active, dl_dt, 0.0)
         dl_ddensity = dl_dt * inv_window
         # Window scalars: dt/ddmin = inv*(t-1), dt/ddmax = -t*inv.
-        dmin_g = dmin_g + torch.sum((dl_dt * (t - 1.0) * inv_window).to(f64))
-        dmax_g = dmax_g + torch.sum((dl_dt * (-t) * inv_window).to(f64))
+        if want_win:
+            dmin_g = dmin_g + torch.sum(
+                (dl_dt * (t - 1.0) * inv_window).to(f64))
+            dmax_g = dmax_g + torch.sum((dl_dt * (-t) * inv_window).to(f64))
 
         # Voxel-grid scatter: the transpose of the 8-corner gather.
         for flat, valid, weight in corners:
@@ -206,8 +220,10 @@ def march_backward_prepared(vol, tf, pos0, dirs, hit, dmin, inv_window, smin,
             vol_g.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
 
         tr = tr * (1.0 - a)
-    return (vol_g.reshape(vol.shape), tf_g.float(), dmin_g.float(),
-            dmax_g.float())
+    return (vol_g.reshape(vol.shape) if want_vol else None,
+            tf_g.float() if want_tf else None,
+            dmin_g.float() if want_win else None,
+            dmax_g.float() if want_win else None)
 
 
 class MarchFunction(torch.autograd.Function):
@@ -219,7 +235,10 @@ class MarchFunction(torch.autograd.Function):
     smin, smax)``.  The ray setup runs inside, so the window enters as
     ``dmin``/``dmax`` and its own dependence reaches their gradients, as in
     the JAX package.  Origin, dirs and the slicing bounds get ``None``
-    (the JAX package returns zeros there).
+    (the JAX package returns zeros there).  The backward asks ``backward``
+    (keyword ``needs``) only for the gradients of ``(vol, tf, window)``
+    that autograd wants (``ctx.needs_input_grad``): a grid fit takes K2's
+    grid-only instantiation.
     """
 
     @staticmethod
@@ -241,14 +260,17 @@ class MarchFunction(torch.autograd.Function):
     def backward(ctx, g):
         (vol, tf, pos0, dirs, hit, dmin, dmax, inv_window, smin, smax,
          out) = ctx.saved_tensors
+        need = ctx.needs_input_grad
         vol_g, tf_g, dmin_g, dmax_g = ctx.backward_fn(
             vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, out,
-            g.contiguous(), **ctx.march_kw)
-        grads = (None, None, None, vol_g, tf_g, None, None,
-                 dmin_g.reshape(dmin.shape), dmax_g.reshape(dmax.shape), None,
-                 None)
-        return tuple(x if need else None
-                     for x, need in zip(grads, ctx.needs_input_grad))
+            g.contiguous(), **ctx.march_kw,
+            needs=(need[3], need[4], need[7] or need[8]))
+        if dmin_g is not None:
+            dmin_g, dmax_g = dmin_g.reshape(dmin.shape), \
+                dmax_g.reshape(dmax.shape)
+        grads = (None, None, None, vol_g, tf_g, None, None, dmin_g, dmax_g,
+                 None, None)
+        return tuple(x if n else None for x, n in zip(grads, need))
 
 
 def make_fused_marcher(num_steps: int, step_size: float,

@@ -29,17 +29,27 @@
 // walks (march_common.cuh:owned_steps), as the TPU kernel loops over
 // [k_lo, k_hi) only; the steps outside it add exactly 0 as well.
 //
-// What bounds it, measured on an H100 (PERF.md §6): not the voxel
-// scatter.  At BASELINE config 3 (256^3, 1920x1080, 512 steps) K2 took
-// 2.79 ms; without its ~580 M global f32 atomics 2.62-2.77 ms, without the
-// shared-memory flush of its TF-gradient runs 1.80-2.01 ms.  On sm_90a a
-// shared-memory f64 atomicAdd (and an f32 one too) compiles to a
-// compare-and-swap loop (ATOMS.CAST.SPIN), and the flushes of one warp
-// land on a few texels: neighbouring rays cross the same densities, so up
-// to 32 lanes retried on one address.  What remains is the re-march (8
-// gathers per step, through march_common.cuh:fetch_corners: one base
-// offset and constant strides where all 8 corners lie inside the array)
-// plus the backward arithmetic.
+// What bounds it, measured on an H100 (PERF.md §6), depends on the grid.
+//   * A fixed, smooth grid (BASELINE config 3: 256^3, 1920x1080, 512
+//     steps): not the voxel scatter.  K2 took 2.79 ms; without its ~580 M
+//     global f32 atomics 2.62-2.77 ms, without the shared-memory flush of
+//     its TF-gradient runs 1.80-2.01 ms.  On sm_90a a shared-memory f64
+//     atomicAdd (and an f32 one too) compiles to a compare-and-swap loop
+//     (ATOMS.CAST.SPIN), and the flushes of one warp land on a few texels:
+//     neighbouring rays cross the same densities, so up to 32 lanes retried
+//     on one address.  What remains is the re-march (8 gathers per step,
+//     through march_common.cuh:fetch_corners: one base offset and constant
+//     strides where all 8 corners lie inside the array) plus the backward
+//     arithmetic.
+//   * A grid that a fit is changing (32 stacked 256x256 views of a 256^3
+//     grid that Adam has made noisy: 130 M samples, 870 M voxel atomics a
+//     launch): the voxel scatter.  K2 took 18.4 ms with its table; without
+//     the TF runs and their flushes 17.6 ms at the same 3 blocks an SM,
+//     and with its atomics replaced by a store that never runs, 3.1 ms.
+//     The atomics cost more the more blocks an SM holds: 11.4 ms at 1
+//     block, 15.9 at 2, 17.6 at 3, 20.3 at 4.  The same kernel on a
+//     quarter of 8 stacked 1920x1080 views of a 512^3 grid (one rank of a
+//     four-card fit) took 10.8-11.0 ms at 1, 2 or 3 blocks an SM.
 //
 // Design on the card:
 //   * 16x16-pixel blocks, one thread per ray, the TF table in shared memory
@@ -53,7 +63,7 @@
 //     lanes whose runs end on the same texel, a shuffle tree sums each group
 //     into its lowest lane, and that lane alone adds the group's sum to an
 //     (ntf, 4) f64 table.  So no two lanes of a warp contend for one
-//     address.  The table is one of two, chosen per launch (kSharedTable):
+//     address.  The table is one of two, chosen per launch (Table):
 //       - many waves of blocks (BASELINE config 3, 8160 blocks): the
 //         block's table in shared memory, where the CAS loop of the f64
 //         atomicAdd succeeds at its first try unless another warp of the
@@ -74,6 +84,17 @@
 //   * For the warp-wide flush every lane of a warp runs every step of the
 //     warp's loop, a lane whose ray is done (or that has no ray) included;
 //     it then only votes.  The loop ends when no lane of the warp is live.
+//   * The grid-only instantiation (kNoTable) is for a caller that wants the
+//     grid's gradient alone (a grid fit: autograd asks for no TF or window
+//     gradient, kernels/march.py:march_backward).  It keeps no TF runs, no
+//     f64 sum, no flush, no table and no window sums: 72 registers and no
+//     spill, against 80 with 20 bytes spilled (-Xptxas -v); the warp's vote
+//     is its loop's end test alone.  Everything else is the same
+//     instruction for instruction.  Its launch asks for more than half of
+//     an SM's shared memory (no_table_smem), so that an SM holds one block
+//     of it at a time: with fewer rays in flight its voxel atomics cost
+//     less (the measurements above: 11.4 against 17.6 ms at the fit's
+//     launch, the same time at a four-card rank's).
 //   * dmin_g and dmax_g are per-thread f64 sums, reduced per block (warp
 //     shuffles, then shared memory) into one global f64 atomicAdd each.
 //   * The voxel gradient is a zeroed (Z, Y, X) f32 grid in global memory;
@@ -94,6 +115,8 @@
 // are not bitwise repeatable; they are held to the plain version with a
 // tolerance (atol 1e-4, rtol 1e-5), not exactly.
 
+#include <algorithm>
+
 #include "march_common.cuh"
 
 // Called once for each step a ray walks (samples, or finds outside the box,
@@ -109,6 +132,23 @@ namespace {
 using march::kFullWarp;
 using march::kTile;
 constexpr int kWarps = kTile * kTile / 32;
+
+// Where a launch sums the TF gradient (march_bwd_launch's `table`): an
+// (ntf, 4) f64 table in the block's shared memory, added to global memory
+// at the block's end; global memory directly; or nowhere, in the grid-only
+// instantiation, which computes the voxel gradient alone.
+enum Table { kGlobalTable = 0, kSharedTable = 1, kNoTable = 2 };
+
+// The blocks of 256 threads an SM should hold at once (__launch_bounds__),
+// which caps the registers a thread has.  The shared table: 3 (80
+// registers, a few spilled): its launches run in waves, where more warps
+// hide more of the gathers' latency (2.23-2.33 against 2.51-2.59 ms at
+// config 3 with 92 registers).  The global table: 1 (its launches are one
+// wave).  No table: 1, the blocks an SM holds of its launch
+// (march_bwd_launch).
+constexpr int min_blocks(int table) {
+  return table == kSharedTable ? 3 : 1;
+}
 
 // Adds the ended TF-gradient runs of a warp to `table`: every lane of the
 // warp calls it at once; `texel` < 0 where the lane adds nothing.
@@ -147,14 +187,11 @@ __device__ __forceinline__ void add_runs(double* table, int texel,
   }
 }
 
-// With the shared table, 3 blocks per SM (80 registers, a few spilled):
-// its launches run in waves, where more warps hide more of the gathers'
-// latency (2.23-2.33 against 2.51-2.59 ms at config 3 with 92 registers).
-// kCount: the counted instantiation, which adds the block's samples, lane
-// steps, voxel atomics and TF flushes to `counts`
+// kTable: a Table.  kCount: the counted instantiation, which adds the
+// block's samples, lane steps, voxel atomics and TF flushes to `counts`
 // (march_common.cuh:add_block_counts); the other takes counts == nullptr.
-template <bool kSharedTable, bool kCount>
-__global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
+template <int kTable, bool kCount>
+__global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
     march_bwd_kernel(const float* __restrict__ pos0,
                      const float* __restrict__ dirs,
                      const unsigned char* __restrict__ hit,
@@ -168,22 +205,28 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
                      int num_steps, float dt, int early_termination,
                      float eps, float amax, float alpha_eps,
                      unsigned long long* __restrict__ counts) {
+  // With the TF gradient and the window's (every table but kNoTable).
+  constexpr bool kTfGrad = kTable != kNoTable;
   // Dynamic shared memory, 16-byte aligned: with kSharedTable the (ntf, 4)
   // f64 gradient table first, then the (ntf, 4) f32 TF table (read as
-  // float4 by march_common.cuh:shade).
+  // float4 by march_common.cuh:shade; the density gradient reads its
+  // slope, so every table keeps it).
   extern __shared__ float4 smem4[];
   double* smem_d = reinterpret_cast<double*>(smem4);
-  float* tf_s =
-      reinterpret_cast<float*>(kSharedTable ? smem_d + ntf * 4 : smem_d);
-  double* tfg_copy = tf_g + static_cast<int64_t>(
-      (blockIdx.y * gridDim.x + blockIdx.x) % tf_copies) * ntf * 4;
-  double* tfg = kSharedTable ? smem_d : tfg_copy;
+  float* tf_s = reinterpret_cast<float*>(
+      kTable == kSharedTable ? smem_d + ntf * 4 : smem_d);
+  double* tfg_copy =
+      kTfGrad ? tf_g + static_cast<int64_t>(
+                           (blockIdx.y * gridDim.x + blockIdx.x) %
+                           tf_copies) * ntf * 4
+              : nullptr;
+  double* tfg = kTable == kSharedTable ? smem_d : tfg_copy;
   __shared__ double red_s[2][kWarps];
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
     tf_s[i] = tf[i];
-    if (kSharedTable) tfg[i] = 0.0;
+    if (kTable == kSharedTable) tfg[i] = 0.0;
   }
   __syncthreads();
   const march::Window win = march::load_window(window);
@@ -191,8 +234,8 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
   const int px = blockIdx.x * kTile + threadIdx.x;
   const int py = blockIdx.y * kTile + threadIdx.y;
   const int64_t ray = static_cast<int64_t>(py) * width + px;
-  // No early return: every lane takes part in the warp's TF flushes and
-  // every thread in the block reductions below.
+  // No early return: every lane takes part in the warp's votes and TF
+  // flushes and every thread in the block reductions below.
   bool live = px < width && py < height && hit[ray];
   march::Ray rr{};
   float4 o{}, g{};
@@ -238,16 +281,19 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
       }
     }
     // A run ends where a sampled step has other texels, or with its ray.
-    const bool ends = run_lo >= 0 &&
-                      (sampled ? (s.lo != run_lo || s.hi != run_hi) : !live);
-    if (__any_sync(kFullWarp, ends)) {
-      if (kCount) ++flushes;
-      add_runs(tfg, ends ? run_lo : -1, acc_lo);
-      add_runs(tfg, ends ? run_hi : -1, acc_hi);
-      if (ends) {
-        run_lo = run_hi = -1;
+    if (kTfGrad) {
+      const bool ends =
+          run_lo >= 0 &&
+          (sampled ? (s.lo != run_lo || s.hi != run_hi) : !live);
+      if (__any_sync(kFullWarp, ends)) {
+        if (kCount) ++flushes;
+        add_runs(tfg, ends ? run_lo : -1, acc_lo);
+        add_runs(tfg, ends ? run_hi : -1, acc_hi);
+        if (ends) {
+          run_lo = run_hi = -1;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc_lo[c] = acc_hi[c] = 0.0;
+          for (int c = 0; c < 4; ++c) acc_lo[c] = acc_hi[c] = 0.0;
+        }
       }
     }
     if (!sampled) continue;
@@ -266,17 +312,19 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     const float da = clamped ? 0.0f : tr * gc + (ga_tfin - suffix) / denom;
 
     // TF-table gradient: the transpose of the 2-bin lerp.
-    run_lo = s.lo;
-    run_hi = s.hi;
-    const float w1 = s.w, w0 = 1.0f - s.w;
-    acc_lo[0] += static_cast<double>(dr * w0);
-    acc_lo[1] += static_cast<double>(dg * w0);
-    acc_lo[2] += static_cast<double>(db * w0);
-    acc_lo[3] += static_cast<double>(da * w0);
-    acc_hi[0] += static_cast<double>(dr * w1);
-    acc_hi[1] += static_cast<double>(dg * w1);
-    acc_hi[2] += static_cast<double>(db * w1);
-    acc_hi[3] += static_cast<double>(da * w1);
+    if (kTfGrad) {
+      run_lo = s.lo;
+      run_hi = s.hi;
+      const float w1 = s.w, w0 = 1.0f - s.w;
+      acc_lo[0] += static_cast<double>(dr * w0);
+      acc_lo[1] += static_cast<double>(dg * w0);
+      acc_lo[2] += static_cast<double>(db * w0);
+      acc_lo[3] += static_cast<double>(da * w0);
+      acc_hi[0] += static_cast<double>(dr * w1);
+      acc_hi[1] += static_cast<double>(dg * w1);
+      acc_hi[2] += static_cast<double>(db * w1);
+      acc_hi[3] += static_cast<double>(da * w1);
+    }
 
     // Density gradient through the lerp slope (tf[hi] - tf[lo]) * ntf.
     const float* tlo = tf_s + s.lo * 4;
@@ -285,8 +333,10 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
                         dg * ((thi[1] - tlo[1]) * fntf) +
                         db * ((thi[2] - tlo[2]) * fntf) +
                         da * ((thi[3] - tlo[3]) * fntf);
-    dmin_acc += static_cast<double>(dl_dt * (s.t - 1.0f) * win.inv_w);
-    dmax_acc += static_cast<double>(dl_dt * (-s.t) * win.inv_w);
+    if (kTfGrad) {
+      dmin_acc += static_cast<double>(dl_dt * (s.t - 1.0f) * win.inv_w);
+      dmax_acc += static_cast<double>(dl_dt * (-s.t) * win.inv_w);
+    }
     const float dl_dd = dl_dt * win.inv_w;
 
     // Voxel gradient: the transpose of the 8-corner gather.
@@ -311,28 +361,31 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
     tr = tr * (1.0f - a);
   }
 
-  // dmin_g / dmax_g: warp shuffles, then one partial per warp.
+  const int lane = tid & 31;
+  if (kTfGrad) {
+    // dmin_g / dmax_g: warp shuffles, then one partial per warp.
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    dmin_acc += __shfl_down_sync(kFullWarp, dmin_acc, offset);
-    dmax_acc += __shfl_down_sync(kFullWarp, dmax_acc, offset);
-  }
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) {
-    red_s[0][warp] = dmin_acc;
-    red_s[1][warp] = dmax_acc;
-  }
-  __syncthreads();   // also orders the shared table's adds before its flush
-  if (tid == 0) {
-    double a0 = 0.0, a1 = 0.0;
-    for (int i = 0; i < kWarps; ++i) {
-      a0 += red_s[0][i];
-      a1 += red_s[1][i];
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      dmin_acc += __shfl_down_sync(kFullWarp, dmin_acc, offset);
+      dmax_acc += __shfl_down_sync(kFullWarp, dmax_acc, offset);
     }
-    atomicAdd(win_g + 0, a0);
-    atomicAdd(win_g + 1, a1);
+    const int warp = tid >> 5;
+    if (lane == 0) {
+      red_s[0][warp] = dmin_acc;
+      red_s[1][warp] = dmax_acc;
+    }
+    __syncthreads();   // also orders the shared table's adds before its flush
+    if (tid == 0) {
+      double a0 = 0.0, a1 = 0.0;
+      for (int i = 0; i < kWarps; ++i) {
+        a0 += red_s[0][i];
+        a1 += red_s[1][i];
+      }
+      atomicAdd(win_g + 0, a0);
+      atomicAdd(win_g + 1, a1);
+    }
   }
-  if (kSharedTable) {
+  if (kTable == kSharedTable) {
     for (int i = tid; i < ntf * 4; i += blockDim.x * blockDim.y) {
       const double v = tfg[i];
       if (v != 0.0) atomicAdd(tfg_copy + i, v);
@@ -348,9 +401,25 @@ __global__ void __launch_bounds__(kTile * kTile, kSharedTable ? 3 : 1)
   }
 }
 
-size_t smem_bytes(bool shared_table, int ntf) {
+size_t smem_bytes(int table, int ntf) {
   return static_cast<size_t>(ntf) * 4 *
-         ((shared_table ? sizeof(double) : 0) + sizeof(float));
+         ((table == kSharedTable ? sizeof(double) : 0) + sizeof(float));
+}
+
+// The dynamic shared memory a grid-only launch asks for on `device`: its TF
+// table, or more than half of what an SM has, so that an SM holds one block
+// of the launch at a time (see the header).
+cudaError_t no_table_smem(int device, int ntf, size_t* smem) {
+  int per_sm = 0, reserved = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
+  if (err != cudaSuccess) return err;
+  *smem = std::max(smem_bytes(kNoTable, ntf),
+                   static_cast<size_t>(per_sm / 2 - reserved + 16));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -373,8 +442,8 @@ const char* march_bwd_error_string(int code) {
 int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(false, ntf);
-  const auto kernel = march_bwd_kernel<false, false>;
+  const size_t smem = smem_bytes(kGlobalTable, ntf);
+  const auto kernel = march_bwd_kernel<kGlobalTable, false>;
   err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -390,8 +459,10 @@ int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
 // grad its cotangent, same shape.  The caller zeroes the outputs: vol_g
 // (nz, ny, nx) f32, tf_g (tf_copies, ntf, 4) f64, whose copies it sums,
 // and win_g (2,) f64 = (dmin_g, dmax_g).  All contiguous, float4 arrays
-// 16-byte aligned.  shared_table != 0 sums each block's TF gradient in
-// shared memory first (ntf*48 bytes of it, else ntf*16).  own_* as for
+// 16-byte aligned.  table (a Table): 1 sums each block's TF gradient in
+// shared memory first (ntf*48 bytes of it, else ntf*16), 0 adds it to
+// global memory directly, 2 computes vol_g alone (tf_g and win_g are not
+// read and may be null, tf_copies is not read).  own_* as for
 // march_fwd_launch: on a depth chunk, vol_g has the chunk's shape, halo row
 // included.  counts, where not null, launches the counted instantiation,
 // which adds (samples, lane steps, voxel atomics, TF flushes) to
@@ -401,7 +472,7 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      int ny, int nx, int own_axis, int own_start,
                      int own_body, int own_total, const float* tf, int ntf,
                      const float* out, const float* grad, float* vol_g,
-                     double* tf_g, int tf_copies, int shared_table,
+                     double* tf_g, int tf_copies, int table,
                      double* win_g, int height, int width,
                      const float* window, int num_steps, float dt,
                      int early_termination, float eps, float amax,
@@ -409,13 +480,23 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (table < kGlobalTable || table > kNoTable) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto kernel =
-      shared_table
-          ? (counts ? march_bwd_kernel<true, true>
-                    : march_bwd_kernel<true, false>)
-          : (counts ? march_bwd_kernel<false, true>
-                    : march_bwd_kernel<false, false>);
-  const size_t smem = smem_bytes(shared_table != 0, ntf);
+      table == kSharedTable
+          ? (counts ? march_bwd_kernel<kSharedTable, true>
+                    : march_bwd_kernel<kSharedTable, false>)
+      : table == kNoTable
+          ? (counts ? march_bwd_kernel<kNoTable, true>
+                    : march_bwd_kernel<kNoTable, false>)
+          : (counts ? march_bwd_kernel<kGlobalTable, true>
+                    : march_bwd_kernel<kGlobalTable, false>);
+  size_t smem = smem_bytes(table, ntf);
+  if (table == kNoTable) {
+    err = no_table_smem(device, ntf, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   err = march::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,

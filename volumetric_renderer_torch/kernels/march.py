@@ -27,6 +27,7 @@ import weakref
 import torch
 
 from volumetric_renderer_torch.core.fused import (
+    ALL_GRADS,
     ALPHA_EPS,
     MarchFunction,
     march_backward_prepared,
@@ -50,6 +51,9 @@ MAX_ROWS = 65535 * 16
 #: block index mod copies, which the wrapper sums: fewer blocks reduce into
 #: one address at once.
 TF_GRAD_COPIES = 64
+#: K2's ``table`` (``csrc/march_bwd.cu``, ``enum Table``): where it sums the
+#: TF gradient, or that it computes the grid's alone.
+GLOBAL_TABLE, SHARED_TABLE, NO_TABLE = 0, 1, 2
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -371,17 +375,21 @@ def march_forward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, *,
 def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
                    out, g, *, num_steps: int, step_size: float,
                    early_termination: bool, termination_eps: float,
-                   own=None):
+                   own=None, needs=ALL_GRADS):
     """K2: the re-march backward of :func:`march_forward` over the same
     prepared rays, given its output ``out`` and the cotangent ``g`` (both
     ``(H, W, 4)``).  Returns ``(vol_g, tf_g, dmin_g, dmax_g)``: the grid
     gradient with ``vol``'s shape (a chunk's halo row included), the TF
     gradient ``(N, 4)`` and two scalars.
 
-    The same checks and the same ``own`` as :func:`march_forward`; ``g`` is
-    made contiguous.  On CUDA the gradients come from f32 atomics, so they
-    are not bitwise repeatable.
+    ``needs = (vol, tf, window)`` says which of them are wanted; the others
+    are ``None``.  Without the TF's and the window's, K2 runs its grid-only
+    instantiation, which leaves out their f64 sums (counted in
+    ``march_backward.grid_only_launches``).  The same checks and the same
+    ``own`` as :func:`march_forward`; ``g`` is made contiguous.  On CUDA the
+    gradients come from f32 atomics, so they are not bitwise repeatable.
     """
+    want_vol, want_tf, want_win = needs = tuple(map(bool, needs))
     fn = "march_backward"
     g = g.detach().contiguous()
     tensors = {"vol": vol, "tf": tf, "pos0": pos0, "dirs": dirs, "hit": hit,
@@ -392,46 +400,59 @@ def march_backward(vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax,
             vol, tf, pos0, dirs, hit, dmin, inv_window, smin, smax, out, g,
             num_steps=num_steps, step_size=step_size,
             early_termination=early_termination,
-            termination_eps=termination_eps, own=own)
+            termination_eps=termination_eps, own=own, needs=needs)
 
     with span("vr.k2"):
         lib, dev_index, height, width, smem_limit = _check_kernel_inputs(
             fn, tensors, 16, "march_bwd", device)
         own = _own_args(fn, own, vol)
         window = _window(fn, device, dmin, inv_window, smin, smax)
-        blocks = -(-height // 16) * -(-width // 16)
-        # the shared table takes ntf*48 bytes of shared memory, else ntf*16
-        shared_table = (tf.shape[0] * 48 <= smem_limit
-                        and blocks > _one_wave(lib, dev_index, tf.shape[0]))
-        copies = max(1, min(TF_GRAD_COPIES, blocks))
-
-        # the TF and window gradients are accumulated in f64, as in the
-        # plain version, and rounded to f32 here
+        grid_only = not (want_tf or want_win)
         vol_g = torch.zeros_like(vol)
-        tf_g = torch.zeros((copies,) + tuple(tf.shape), dtype=torch.float64,
-                           device=device)
-        win_g = torch.zeros(2, dtype=torch.float64, device=device)
+        if grid_only:
+            table, copies, tf_g, win_g = NO_TABLE, 0, None, None
+        else:
+            blocks = -(-height // 16) * -(-width // 16)
+            # the shared table takes ntf*48 bytes of shared memory, else
+            # ntf*16
+            shared = (tf.shape[0] * 48 <= smem_limit and
+                      blocks > _one_wave(lib, dev_index, tf.shape[0]))
+            table = SHARED_TABLE if shared else GLOBAL_TABLE
+            copies = max(1, min(TF_GRAD_COPIES, blocks))
+            # the TF and window gradients are accumulated in f64, as in the
+            # plain version, and rounded to f32 here
+            tf_g = torch.zeros((copies,) + tuple(tf.shape),
+                               dtype=torch.float64, device=device)
+            win_g = torch.zeros(2, dtype=torch.float64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         nz, ny, nx = vol.shape
         code = lib.march_bwd_launch(
             dev_index, pos0.data_ptr(), dirs.data_ptr(), hit.data_ptr(),
             vol.data_ptr(), nz, ny, nx, *own, tf.data_ptr(), tf.shape[0],
-            out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), tf_g.data_ptr(),
-            copies, int(shared_table), win_g.data_ptr(), height, width,
+            out.data_ptr(), g.data_ptr(), vol_g.data_ptr(),
+            None if grid_only else tf_g.data_ptr(), copies, table,
+            None if grid_only else win_g.data_ptr(), height, width,
             window.data_ptr(),
             int(num_steps), float(step_size), int(bool(early_termination)),
             float(termination_eps), 1.0 - ALPHA_EPS, ALPHA_EPS,
             counts.pointer(device, "k2"), stream)
         _check_cuda(code, lib, "march_bwd", "launch")
         march_backward.launches += 1
+        vol_g = vol_g if want_vol else None
+        if grid_only:
+            march_backward.grid_only_launches += 1
+            return vol_g, None, None, None
         win_g = win_g.float()
-        return vol_g, tf_g.sum(0).float(), win_g[0], win_g[1]
+        return (vol_g, tf_g.sum(0).float() if want_tf else None,
+                *((win_g[0], win_g[1]) if want_win else (None, None)))
 
 
 #: Kernel launches since the count was last reset; a run sets them to 0 and
 #: reads them back to show that its main path went through the kernels.
 march_forward.launches = 0
 march_backward.launches = 0
+#: The launches of K2's grid-only instantiation among them (a grid fit).
+march_backward.grid_only_launches = 0
 #: Copies of a grid into K1's texture (``_grid_texture``) since the count
 #: was last reset: a timed loop over one unchanged grid should make none.
 march_forward.texture_fills = 0

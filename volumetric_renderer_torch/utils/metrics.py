@@ -169,6 +169,7 @@ def counting() -> Iterator[None]:
 
     march.counts.reset()
     march.march_forward.launches = march.march_backward.launches = 0
+    march.march_backward.grid_only_launches = 0
     march.march_forward.texture_fills = 0
     fold.fold_forward.launches = fold.fold_backward.launches = 0
     render.all_reduce_sum.bytes = 0
@@ -185,7 +186,8 @@ def read_counters(device) -> dict:
     there; reading them waits for the card), ``nccl_bytes``, the bytes this
     process handed to the all-reduce (``parallel.render.all_reduce_sum``),
     and the wrappers' launch counters: ``k1_launches``, ``k2_launches``,
-    ``fold_launches`` and ``texture_fills``."""
+    ``k2_grid_only_launches`` (of K2's, those of its grid-only
+    instantiation), ``fold_launches`` and ``texture_fills``."""
     from volumetric_renderer_torch.kernels import fold, march
     from volumetric_renderer_torch.parallel import render
 
@@ -193,6 +195,7 @@ def read_counters(device) -> dict:
                 nccl_bytes=render.all_reduce_sum.bytes,
                 k1_launches=march.march_forward.launches,
                 k2_launches=march.march_backward.launches,
+                k2_grid_only_launches=march.march_backward.grid_only_launches,
                 fold_launches=(fold.fold_forward.launches
                                + fold.fold_backward.launches),
                 texture_fills=march.march_forward.texture_fills)
