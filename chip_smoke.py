@@ -30,7 +30,8 @@ two opposing arcs) is held against a loop of one march per view built
 here.  It also holds K1 and K2 against their plain versions on one
 config-4 view and on both steps' stacked rays, K2's grid-only
 instantiation (a grid fit's) against its plain version on config 4's
-stacked rays over a noisy grid, timed beside the full one there (phase
+stacked rays over a noisy grid, timed beside the full one there and
+counted (voxel reductions against in-grid corners; phase
 ``k2_grid_only_fit_shape``), launches both kernels under
 ``torch.cuda.set_sync_debug_mode("error")``, and computes each kernel's
 bound from the steps its inputs make it sample.  The phase
@@ -257,6 +258,9 @@ def main() -> int:
     from volumetric_renderer_torch.scene.camera import OrbitCamera, ray_grid
     from volumetric_renderer_torch.transfer.gradient import Gradient
     from volumetric_renderer_torch.utils.config import RenderSettings
+    from volumetric_renderer_torch.utils.metrics import (
+        counting, read_counters,
+    )
     from volumetric_renderer_torch.utils.sanitize import (
         assert_deterministic, checked_render,
     )
@@ -1398,8 +1402,10 @@ def main() -> int:
     # noise Adam leaves in it (a step of lr 5e-2 moves a voxel by up to
     # 0.05, ~13 texels of the window), where the TF runs break at almost
     # every step.  The fit asks for the grid's gradient alone, so K2 runs
-    # its grid-only instantiation: against the plain version, and timed
-    # beside the full instantiation on the same inputs
+    # its grid-only instantiation: against the plain version, timed beside
+    # the full instantiation on the same inputs, and counted: its voxel
+    # reductions (x-pairs of corners as float4 reductions on a grid of 256
+    # columns) against the in-grid corners it adds
     noisy = (vol + FIT_NOISE * torch.randn(
         vol.shape, device=dev,
         generator=torch.Generator(device=dev).manual_seed(16))).clamp_(0.0, 1.0)
@@ -1421,8 +1427,17 @@ def main() -> int:
         k2_fit[f"{mode}_device_ms"] = device_ms(
             lambda kw=kw: march_backward(*args_fit, out_fit, g4s, **kw), 5,
             "march_bwd_kernel")[0]
+    with counting():
+        march_backward(*args_fit, out_fit, g4s, **grid_only)
+        fit_counts = read_counters(dev)["k2"]
+    k2_fit.update(voxel_reds=fit_counts["voxel_reds"],
+                  voxel_atomics=fit_counts["voxel_atomics"],
+                  reds_per_atomic=fit_counts["voxel_reds"]
+                  / fit_counts["voxel_atomics"])
     emit(phase="k2_grid_only_fit_shape", gpu=gpu, nvidia_smi=smi,
          atol=BWD_ATOL, rtol=BWD_RTOL, **k2_fit)
+    check(fit_counts["voxel_reds"] < fit_counts["voxel_atomics"],
+          f"fit's launch: K2 did not pair its corners {fit_counts}")
     check(fit_plain[1:] == (None, None, None),
           "grid-only plain backward returned TF or window gradients")
     check(fit_ok, f"fit's launch: grid-only K2 vs plain {fit_err}")

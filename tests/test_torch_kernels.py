@@ -67,7 +67,11 @@ CASES = ["orient_30_20", "orient_120_-35", "orient_200_5", "orient_0_80",
 # A random 4096-texel TF: 64 KiB of shared memory, past the 48 KB a launch
 # gets without opting in.  Its steep lerp turns the last-ulp differences of
 # another framework's trilinear sum into ~1e-4, so it is a kernel-only case.
-KERNEL_CASES = CASES + ["tf_past_48k_shared_memory"]
+# K2's voxel scatter on noisy grids of 32 and 31 columns: rows of whole
+# 16-byte slots, where it adds x-pairs of corners as float4 reductions, and
+# rows that are not, where it adds corner by corner.
+SCATTER_CASES = ["noise_x32", "noise_x31"]
+KERNEL_CASES = CASES + ["tf_past_48k_shared_memory"] + SCATTER_CASES
 
 
 def case_params(name):
@@ -111,6 +115,8 @@ def case_params(name):
         c["camera"] = (45.0, 35.26, 3.0)
     elif name == "grid_2":
         c["vol"] = rng.uniform(size=(2, 2, 2)).astype(np.float32)
+    elif name.startswith("noise_x"):
+        c["vol"] = rng.uniform(size=(N, N, int(name[7:]))).astype(np.float32)
     elif name == "close_wide_fov_et":
         c["camera"], c["fov"], c["et"] = (30.0, 20.0, 0.9), 90.0, True
     elif name.startswith("near_constant"):
@@ -552,7 +558,7 @@ TABLES = {"global": march.GLOBAL_TABLE, "shared": march.SHARED_TABLE,
 
 
 def cpu_launch(libs, args, kw, out=None, g=None, table="global",
-               counts=None):
+               counts=None, shift=0):
     """K1 (``out`` None) or K2 on CPU tensors, through the C interface the
     wrapper calls; returns what ``march_forward`` / ``march_backward``
     would.  K2 sums its TF gradient in shared memory first with ``table``
@@ -562,7 +568,8 @@ def cpu_launch(libs, args, kw, out=None, g=None, table="global",
     and the window's, and returns None for them.  With ``counts``, the
     address of the kernel's slots in a counter buffer
     (``march.KernelCounts.pointer``), the launch runs the kernel's counted
-    instantiation, which adds to them."""
+    instantiation, which adds to them.  K2's grid gradient starts ``shift``
+    floats into its buffer (1: not 16-byte aligned)."""
     vol, tf, pos0, dirs, hit = args[:5]
     h, w = pos0.shape[:2]
     own = march._own_args("cpu_launch", kw.get("own"), vol)
@@ -586,7 +593,7 @@ def cpu_launch(libs, args, kw, out=None, g=None, table="global",
         return res
     head = (*rays, vol.data_ptr(), *tail)
     g = g.contiguous()
-    vol_g = torch.zeros_like(vol)
+    vol_g = torch.zeros(vol.numel() + shift)[shift:].view(vol.shape)
     if table == "none":
         code = libs["march_bwd"].march_bwd_launch(
             *head, out.data_ptr(), g.data_ptr(), vol_g.data_ptr(), None, 0,
@@ -632,7 +639,9 @@ def cpu_launch(libs, args, kw, out=None, g=None, table="global",
     # empty interval
     ("near_constant", (0, 4, 1)), ("near_constant", (2, 4, 2)),
     ("near_constant", (1, 4, 0)), ("near_constant_et", (0, 4, 2)),
-    ("near_constant_et", (1, 4, 1)), ("graze_faces", (2, 4, 3))])
+    ("near_constant_et", (1, 4, 1)), ("graze_faces", (2, 4, 3)),
+    # K2's voxel scatter: x-pairs as float4 reductions, and corner by corner
+    ("noise_x32", None), ("noise_x31", None)])
 def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
                                                      own, table):
     """The CUDA sources, compiled by g++ for the CPU, against the plain
@@ -660,6 +669,26 @@ def test_kernel_sources_compiled_for_cpu_match_plain(cpu_kernels, name,
         assert a.shape == b.shape, what
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
                                    rtol=BWD_RTOL, err_msg=what)
+
+
+@pytest.mark.parametrize("name", SCATTER_CASES)
+def test_scatter_cases_reach_every_slot_lane_and_both_x_borders(name):
+    """The scatter cases sample (by the plain forward's positions, in
+    NumPy) with the lower x corner at -1 and at nx - 1 (border samples,
+    added corner by corner), and inside the grid with ``x0 % 4`` at each of
+    0-3 (a pair in one of the slot's three places, or across two slots)."""
+    args, kw = case_inputs(name, "cpu")
+    nx = args[0].shape[-1]
+    k = np.arange(kw["num_steps"], dtype=np.float32)
+    pos = (args[2].numpy()[..., None, :] + (k * np.float32(kw["step_size"]))
+           [:, None] * args[3].numpy()[..., None, :])
+    inside = ((pos >= 0) & (pos <= 1)).all(-1) & args[4].numpy()[..., None]
+    corner = np.floor(pos * np.float32([nx, N, N]) - np.float32(0.5))
+    x0 = corner[..., 0][inside]
+    assert (x0 == -1).sum() > 100 and (x0 == nx - 1).sum() > 100
+    interior = ((corner >= 0) & (corner < np.float32([nx, N, N]) - 1)).all(-1)
+    lanes = corner[..., 0][inside & interior] % 4
+    assert all((lanes == r).sum() > 1000 for r in range(4))
 
 
 def test_k2_occupancy_is_queried_once_per_device_and_tf_size(cpu_kernels,

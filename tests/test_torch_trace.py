@@ -7,9 +7,11 @@ The counted kernels are held here, on the g++ build of the CUDA sources
 (``tests/cuda_on_cpu``), to counts computed from the plain forward's
 steps: ``sampled`` from its ``_active`` mask, ``voxel_atomics`` from the
 in-grid corners of sampled steps whose density gradient is not 0 (the plain
-backward's formula), ``lane_steps`` and ``tf_flushes`` from each ray's step
-interval (``owned_steps_proxy``) and the warp layout (16x16 blocks, a warp
-two rows of a block).  The test marked ``cuda`` does the same on the card.
+backward's formula), ``voxel_reds`` from those corners and the rule of
+``csrc/march_bwd.cu:scatter_corners``, ``lane_steps`` and ``tf_flushes``
+from each ray's step interval (``owned_steps_proxy``) and the warp layout
+(16x16 blocks, a warp two rows of a block).  The tests marked ``cuda`` do
+the same on the card.
 
 This file imports neither JAX nor the JAX package.  Its worker, for the
 byte counter on two ranks over gloo, is the file itself:
@@ -30,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from test_torch_kernels import (  # noqa: F401 (cpu_kernels: a fixture)
     BWD_ATOL,
     BWD_RTOL,
+    SCATTER_CASES,
     case_inputs,
     cotangent,
     cpu_kernels,
@@ -194,12 +197,16 @@ def _first(cond: np.ndarray, k_from: np.ndarray, none: int) -> np.ndarray:
     return np.where(cond.any(0), cond.argmax(0), none)
 
 
-def plain_counts(args, kw, g) -> dict:
+def plain_counts(args, kw, g, pairs=None) -> dict:
     """K1's and K2's counts (``march.COUNTED``) for these inputs and the
     cotangent ``g``, from the plain forward's steps (``march_prepared``'s
     check hook): a step samples where ``_active`` holds; K2 adds to the 8
     in-grid corners of a sample whose density gradient (the plain
-    backward's formula) is not 0; a lane's walk is its step interval
+    backward's formula) is not 0, with 4 reductions where ``pairs`` (the
+    grid's rows are whole 16-byte slots; by default where ``nx % 4 == 0``,
+    its gradient aligned) and all 8 lie inside the grid, 8 where the lower
+    x corner is then 3 mod 4, and one for each in-grid corner otherwise;
+    a lane's walk is its step interval
     (``owned_steps_proxy``) up to the box exit or early termination; a
     warp's lane steps are 32 times the longest walk of its lanes, K2's
     loop taking one trip more where a ray ends other than at the box's
@@ -208,6 +215,8 @@ def plain_counts(args, kw, g) -> dict:
     own = check_own(kw.get("own"), tuple(vol.shape))
     n_steps, et, eps = (kw["num_steps"], kw["early_termination"],
                         kw["termination_eps"])
+    nx = vol.shape[-1]
+    pairs = nx % 4 == 0 if pairs is None else pairs
     seen = {}
     out = march.march_forward_plain(
         *args, **kw,
@@ -224,7 +233,7 @@ def plain_counts(args, kw, g) -> dict:
     g_rgb, g_alpha = g[..., :3], torch.where(hit, g[..., 3], 0.0)
     big_g, tr_fin = _dot(g_rgb, out), 1.0 - out[..., 3]
     tr, p = torch.ones(hit.shape), torch.zeros(hit.shape)
-    atomics, lo_all, hi_all = 0, [], []
+    atomics, reds, lo_all, hi_all = 0, 0, [], []
     for k in range(n_steps):
         act = active[k]
         lo, hi, w = tf_lerp(n, torch.where(act, t_all[k], 0.0))
@@ -241,8 +250,14 @@ def plain_counts(args, kw, g) -> dict:
         dl_dt = _dot(torch.cat([dl_dc, dl_da[..., None]], -1),
                      (tf[hi] - tf[lo]) * n, 4)
         adds = act & (dl_dt * inv_w != 0.0)
-        atomics += sum(int((valid & adds).sum()) for _, valid, _ in
-                       trilinear_corners(vol.shape, pos[k], own))
+        corners = trilinear_corners(vol.shape, pos[k], own)
+        valid = torch.stack([v for _, v, _ in corners])
+        atomics += int((valid & adds).sum())
+        # the first corner's index is unclipped where all 8 lie inside
+        x0 = corners[0][0] % nx
+        per = torch.where(pairs & valid.all(0),
+                          torch.where(x0 % 4 == 3, 8, 4), valid.sum(0))
+        reds += int(per[adds].sum())
         tr = tr * (1.0 - a)
 
     # each lane's walk: its interval, up to the box exit or termination
@@ -280,14 +295,16 @@ def plain_counts(args, kw, g) -> dict:
                    "lane_steps": 32 * int(warps(k1_walk).max(-1).sum())},
             "k2": {"sampled": sampled,
                    "lane_steps": 32 * int(warps(k2_trips).max(-1).sum()),
-                   "voxel_atomics": atomics, "tf_flushes": flushes}}
+                   "voxel_atomics": atomics, "tf_flushes": flushes,
+                   "voxel_reds": reds}}
 
 
 COUNT_CASES = [("orient_30_20", None), ("early_termination", None),
                ("slicing", None), ("image_30x20", None),
                ("orient_200_5", (1, 4, 0)), ("graze_faces", (2, 4, 1)),
                ("near_constant", (0, 4, 1)), ("near_constant_et", (0, 4, 2)),
-               ("close_wide_fov", (0, 4, 1))]
+               ("close_wide_fov", (0, 4, 1))] + \
+    [(name, None) for name in SCATTER_CASES]
 
 
 def inputs(name, own, device="cpu"):
@@ -322,7 +339,17 @@ def test_counted_kernels_compiled_for_cpu_count_what_plain_counts(
     want = plain_counts(args, kw, g)
     assert {k: got[k] for k in want} == want
     assert want["k2"]["voxel_atomics"] > 0 and want["k2"]["tf_flushes"] > 0
+    assert_reds_pair_on_whole_slots(want["k2"], args[0])
     assert want["k1"]["lane_steps"] > want["k1"]["sampled"] > 0
+
+
+def assert_reds_pair_on_whole_slots(k2: dict, vol, pairs=None) -> None:
+    """K2 issues fewer reductions than it adds corners on a grid whose rows
+    are whole 16-byte slots (``pairs``; by default where ``nx % 4 == 0``),
+    and one a corner on any other."""
+    pairs = vol.shape[-1] % 4 == 0 if pairs is None else pairs
+    reds, atomics = k2["voxel_reds"], k2["voxel_atomics"]
+    assert (reds < atomics if pairs else reds == atomics), (reds, atomics)
 
 
 @pytest.mark.parametrize("name,own", COUNT_CASES)
@@ -346,6 +373,35 @@ def test_counted_grid_only_k2_compiled_for_cpu_counts_what_plain_counts(
     want = dict(plain_counts(args, kw, g)["k2"], tf_flushes=0)
     assert metrics.read_counters("cpu")["k2"] == want
     assert want["voxel_atomics"] > 0
+    assert_reds_pair_on_whole_slots(want, args[0])
+
+
+@pytest.mark.parametrize("table", ["shared", "none"])
+def test_k2_adds_corner_by_corner_into_a_misaligned_grid_gradient(
+        cpu_kernels, monkeypatch, table):
+    """A grid gradient that starts 4 bytes past a 16-byte boundary, on a
+    grid of 32 columns: K2 (the g++ build, whose float4 reduction fails the
+    launch at a misaligned address) adds corner by corner, one reduction a
+    corner, and gives the aligned launch's gradient within K2's bars."""
+    monkeypatch.setattr(march, "counts", march.KernelCounts())
+    args, kw = case_inputs("noise_x32", "cpu")
+    g = cotangent(args)
+    out = cpu_launch(cpu_kernels, args, kw)
+    want = cpu_launch(cpu_kernels, args, kw, out, g, table=table)
+    with metrics.counting():
+        got = cpu_launch(cpu_kernels, args, kw, out, g, table=table,
+                         counts=march.counts.pointer("cpu", "k2"), shift=1)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL)
+    counted = metrics.read_counters("cpu")["k2"]
+    plain = plain_counts(args, kw, g, pairs=False)["k2"]
+    assert {k: counted[k] for k in ("voxel_atomics", "voxel_reds")} == \
+        {k: plain[k] for k in ("voxel_atomics", "voxel_reds")}
+    assert_reds_pair_on_whole_slots(counted, args[0], pairs=False)
 
 
 def test_counting_resets_the_counters_and_is_off_outside_its_block(
@@ -455,10 +511,15 @@ def cuda():
     return torch.device("cuda")
 
 
+#: The cases of the card's count tests: K2's scatter by pairs and corner by
+#: corner (``noise_x32``, ``noise_x31``, the chunk along z of 32 columns).
+CUDA_COUNT_CASES = [("orient_30_20", None), ("early_termination", None),
+                    ("near_constant", (0, 4, 1))] + \
+    [(name, None) for name in SCATTER_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,own", [("orient_30_20", None),
-                                      ("early_termination", None),
-                                      ("near_constant", (0, 4, 1))])
+@pytest.mark.parametrize("name,own", CUDA_COUNT_CASES)
 def test_counted_kernels_count_what_plain_counts_on_cuda(cuda, monkeypatch,
                                                          name, own):
     """K1 and K2 through their wrappers on the card: outside ``counting``
@@ -482,6 +543,7 @@ def test_counted_kernels_count_what_plain_counts_on_cuda(cuda, monkeypatch,
                                    atol=BWD_ATOL, rtol=BWD_RTOL)
     want = plain_counts(args, kw, g)
     assert {k: got[k] for k in want} == want
+    assert_reds_pair_on_whole_slots(got["k2"], args[0])
     assert (got["k1_launches"], got["k2_launches"]) == (1, 1)
     march.march_forward(*dev_args, **kw)
     march.march_backward(*dev_args, out, g.to(cuda), **kw)
@@ -489,9 +551,7 @@ def test_counted_kernels_count_what_plain_counts_on_cuda(cuda, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,own", [("orient_30_20", None),
-                                      ("early_termination", None),
-                                      ("near_constant", (0, 4, 1))])
+@pytest.mark.parametrize("name,own", CUDA_COUNT_CASES)
 def test_counted_grid_only_k2_counts_what_plain_counts_on_cuda(
         cuda, monkeypatch, name, own):
     """K2's grid-only instantiation through its wrapper on the card (the
@@ -514,6 +574,7 @@ def test_counted_grid_only_k2_counts_what_plain_counts_on_cuda(
                                rtol=BWD_RTOL)
     assert got["k2"] == dict(plain_counts(args, kw, g.cpu())["k2"],
                              tf_flushes=0)
+    assert_reds_pair_on_whole_slots(got["k2"], args[0])
     assert (got["k2_launches"], got["k2_grid_only_launches"]) == (1, 1)
 
 

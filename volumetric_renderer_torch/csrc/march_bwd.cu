@@ -94,20 +94,37 @@
 //     an SM's shared memory (no_table_smem), so that an SM holds one block
 //     of it at a time: with fewer rays in flight its voxel atomics cost
 //     less (the measurements above: 11.4 against 17.6 ms at the fit's
-//     launch, the same time at a four-card rank's).
+//     launch, the same time at a four-card rank's).  With the float4
+//     scatter below, one block still leads at both launches (medians of 9
+//     launches: 8.1, 11.2 and 14.7 ms at 1, 2 and 3 blocks at the fit's,
+//     8.7, 8.8 and 9.3 at a rank's).
 //   * dmin_g and dmax_g are per-thread f64 sums, reduced per block (warp
 //     shuffles, then shared memory) into one global f64 atomicAdd each.
 //   * The voxel gradient is a zeroed (Z, Y, X) f32 grid in global memory;
-//     each active step adds to its 8 corners with f32 atomicAdd (skipped
-//     where the density gradient is exactly 0, e.g. in empty space where
-//     the TF is flat, which changes nothing).  These are fire-and-forget
-//     reductions in L2 and cost 0.02-0.17 ms of the 2.79 (above).  An
-//     accumulator per block in shared memory would trade them for shared
-//     f32 atomicAdds, which are CAS loops on this card, contended wherever
-//     neighbouring rays share a voxel; it is not built.
+//     each active step adds to its 8 corners with fire-and-forget
+//     reductions in L2 (skipped where the density gradient is exactly 0,
+//     e.g. in empty space where the TF is flat, which changes nothing).
+//     On the fixed, smooth grid of config 3 they cost 0.02-0.17 ms of the
+//     2.79 (above); at a grid fit's launch, 8 scalar reductions a sample
+//     took about 8 of the 11.4 ms (above: 3.1 without them).  So where the
+//     grid's rows are whole 16-byte slots (nx % 4 == 0, vol_g aligned), a
+//     sample inside the grid adds each of its 4 rows' x-pairs of corners
+//     with one float4 reduction (REDG.E.ADD.F32x4), or two where the pair
+//     straddles two slots: 5 requests a sample in place of 8, 0.625 of
+//     them in both fit cells (scatter_corners).  The grid-only K2 went
+//     from 10.4 to 8.1 ms at the fit's launch and from 10.7 to 8.7 at a
+//     rank's (medians, PERF.md §6).  Border samples and other grids (a
+//     depth chunk split along x, an odd nx) add corner by corner.  On the
+//     fixed, smooth grid of config 3 the shared table took 3-6% longer
+//     with it (2.06-2.13 against 2.18-2.22 ms), and a version of the
+//     scatter without its 4 more bytes of spill there was slower still.
+//     An accumulator per block in shared memory would trade them for
+//     shared f32 atomicAdds, which are CAS loops on this card, contended
+//     wherever neighbouring rays share a voxel; it is not built.
 //
 //   * A counted instantiation (kCount) counts the samples, the steps the
-//     warps pay for, the voxel atomics and the TF flushes, for
+//     warps pay for, the voxel atomics, the TF flushes and the voxel
+//     reductions (scalar and float4), for
 //     utils/metrics.py:counting.  A launch without a counter buffer runs the
 //     other, which counts nothing.
 //
@@ -187,9 +204,73 @@ __device__ __forceinline__ void add_runs(double* table, int texel,
   }
 }
 
+// The voxel gradient's scatter, the transpose of the 8-corner gather: adds
+// dl_dd times each in-grid corner's weight to vol_g, and counts the
+// in-grid corners (`atomics`) and the reductions issued (`reds`).
+//   * `pairs` (vol_g's rows are whole 16-byte slots: nx % 4 == 0 and vol_g
+//     16-byte aligned) and all 8 corners inside the array: each of the 4
+//     rows (y0 + cy, z0 + cz) adds its pair of x-neighbours (x0, x0 + 1)
+//     with one float4 reduction into the slot that holds both, +0 in the
+//     slot's other two lanes, or with two where the pair straddles two
+//     slots (x0 % 4 == 3): 5 requests for 8 corners where x0 % 4 is spread
+//     evenly, against 8.
+//   * Otherwise (a border sample, or rows that are not whole slots): one
+//     scalar atomicAdd for each in-grid corner.
+// Each corner's value is the same product either way, and adding +0
+// changes no sum: every voxel receives the same f32 addends.
+__device__ __forceinline__ void scatter_corners(float* __restrict__ vol_g,
+                                                const march::Grid& grid,
+                                                const march::Sample& s,
+                                                float dl_dd, bool pairs,
+                                                int& atomics, int& reds) {
+  if (pairs && march::interior(grid, s)) {
+    const int lane = s.x0 & 3;
+    const int64_t sy = grid.nx;
+    const int64_t sz = sy * grid.ny;
+    float* const row0 = vol_g + march::voxel_offset(s.x0 - lane, s.y0, s.z0,
+                                                    grid.nx, grid.ny);
+#pragma unroll
+    for (int cz = 0; cz < 2; ++cz) {
+#pragma unroll
+      for (int cy = 0; cy < 2; ++cy) {
+        const float v0 = dl_dd * march::corner_weight(s, 0, cy, cz);
+        const float v1 = dl_dd * march::corner_weight(s, 1, cy, cz);
+        float4* const slot =
+            reinterpret_cast<float4*>(row0 + cz * sz + cy * sy);
+        atomicAdd(slot, make_float4(lane == 0 ? v0 : 0.0f,
+                                    lane == 0 ? v1 : lane == 1 ? v0 : 0.0f,
+                                    lane == 1 ? v1 : lane == 2 ? v0 : 0.0f,
+                                    lane == 2 ? v1 : lane == 3 ? v0 : 0.0f));
+        if (lane == 3) atomicAdd(slot + 1, make_float4(v1, 0.0f, 0.0f, 0.0f));
+      }
+    }
+    atomics += 8;
+    reds += lane == 3 ? 8 : 4;
+    return;
+  }
+#pragma unroll
+  for (int cz = 0; cz < 2; ++cz) {
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy) {
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
+        if (march::in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)) {
+          atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx, grid.ny),
+                    dl_dd * march::corner_weight(s, cx, cy, cz));
+          ++atomics;
+          ++reds;
+        }
+      }
+    }
+  }
+}
+
 // kTable: a Table.  kCount: the counted instantiation, which adds the
-// block's samples, lane steps, voxel atomics and TF flushes to `counts`
-// (march_common.cuh:add_block_counts); the other takes counts == nullptr.
+// block's samples, lane steps, voxel atomics, TF flushes and voxel
+// reductions to `counts` (march_common.cuh:add_block_counts); the other
+// takes counts == nullptr.  pairs: scatter_corners's, the same for every
+// thread of the launch.
 template <int kTable, bool kCount>
 __global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
     march_bwd_kernel(const float* __restrict__ pos0,
@@ -203,7 +284,7 @@ __global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
                      int tf_copies, double* __restrict__ win_g, int height,
                      int width, const float* __restrict__ window,
                      int num_steps, float dt, int early_termination,
-                     float eps, float amax, float alpha_eps,
+                     float eps, float amax, float alpha_eps, int pairs,
                      unsigned long long* __restrict__ counts) {
   // With the TF gradient and the window's (every table but kNoTable).
   constexpr bool kTfGrad = kTable != kNoTable;
@@ -265,7 +346,7 @@ __global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
   march::Sample s;
   // what the counted instantiation counts: every lane counts its warp's
   // trips of this loop and its flushes, which are the same on every lane
-  int trips = 0, flushes = 0, n_sampled = 0, n_atomics = 0;
+  int trips = 0, flushes = 0, n_sampled = 0, n_atomics = 0, n_reds = 0;
   for (; __any_sync(kFullWarp, live); ++k) {
     if (kCount) ++trips;
     bool sampled = false;
@@ -339,24 +420,8 @@ __global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
     }
     const float dl_dd = dl_dt * win.inv_w;
 
-    // Voxel gradient: the transpose of the 8-corner gather.
     if (dl_dd != 0.0f) {
-#pragma unroll
-      for (int cz = 0; cz < 2; ++cz) {
-#pragma unroll
-        for (int cy = 0; cy < 2; ++cy) {
-#pragma unroll
-          for (int cx = 0; cx < 2; ++cx) {
-            const int ix = s.x0 + cx, iy = s.y0 + cy, iz = s.z0 + cz;
-            if (march::in_grid(ix, iy, iz, grid.nx, grid.ny, grid.nz)) {
-              atomicAdd(vol_g + march::voxel_offset(ix, iy, iz, grid.nx,
-                                                    grid.ny),
-                        dl_dd * march::corner_weight(s, cx, cy, cz));
-              if (kCount) ++n_atomics;
-            }
-          }
-        }
-      }
+      scatter_corners(vol_g, grid, s, dl_dd, pairs != 0, n_atomics, n_reds);
     }
     tr = tr * (1.0f - a);
   }
@@ -392,11 +457,12 @@ __global__ void __launch_bounds__(kTile * kTile, min_blocks(kTable))
     }
   }
   if (kCount) {
-    const unsigned long long c[4] = {
+    const unsigned long long c[5] = {
         static_cast<unsigned long long>(n_sampled),
         static_cast<unsigned long long>(trips),
         static_cast<unsigned long long>(n_atomics),
-        static_cast<unsigned long long>(lane == 0 ? flushes : 0)};
+        static_cast<unsigned long long>(lane == 0 ? flushes : 0),
+        static_cast<unsigned long long>(n_reds)};
     march::add_block_counts(counts, c);
   }
 }
@@ -464,9 +530,11 @@ int march_bwd_occupancy(int device, int ntf, int* blocks_per_sm, int* sms) {
 // global memory directly, 2 computes vol_g alone (tf_g and win_g are not
 // read and may be null, tf_copies is not read).  own_* as for
 // march_fwd_launch: on a depth chunk, vol_g has the chunk's shape, halo row
-// included.  counts, where not null, launches the counted instantiation,
-// which adds (samples, lane steps, voxel atomics, TF flushes) to
-// counts[0..4).
+// included.  The voxel gradient's scatter adds x-pairs of corners as float4
+// reductions where nx % 4 == 0 and vol_g is 16-byte aligned, and corner by
+// corner elsewhere (scatter_corners).  counts, where not null, launches the
+// counted instantiation, which adds (samples, lane steps, voxel atomics, TF
+// flushes, voxel reductions) to counts[0..5).
 int march_bwd_launch(int device, const float* pos0, const float* dirs,
                      const unsigned char* hit, const float* vol, int nz,
                      int ny, int nx, int own_axis, int own_start,
@@ -501,12 +569,14 @@ int march_bwd_launch(int device, const float* pos0, const float* dirs,
   if (err != cudaSuccess) return static_cast<int>(err);
   const march::Grid vgrid = march::make_grid(nz, ny, nx, own_axis, own_start,
                                              own_body, own_total);
+  const int pairs =
+      nx % 4 == 0 && reinterpret_cast<uintptr_t>(vol_g) % sizeof(float4) == 0;
   const dim3 block(kTile, kTile);
   const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       pos0, dirs, hit, vol, vgrid, tf, ntf, out, grad, vol_g, tf_g,
       tf_copies, win_g, height, width, window, num_steps, dt,
-      early_termination, eps, amax, alpha_eps, counts);
+      early_termination, eps, amax, alpha_eps, pairs, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

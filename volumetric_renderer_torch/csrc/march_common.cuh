@@ -164,11 +164,18 @@ __device__ __forceinline__ int locate_step(const Grid& grid, const Ray& ray,
   return kSampled;
 }
 
+// Whether all 8 corners of the trilinear fetch at (s.x0, s.y0, s.z0) lie
+// inside the array (most steps): one unsigned compare per axis.
+__device__ __forceinline__ bool interior(const Grid& grid, const Sample& s) {
+  return static_cast<unsigned>(s.x0) < static_cast<unsigned>(grid.nx - 1) &&
+         static_cast<unsigned>(s.y0) < static_cast<unsigned>(grid.ny - 1) &&
+         static_cast<unsigned>(s.z0) < static_cast<unsigned>(grid.nz - 1);
+}
+
 // The 8 voxels of the trilinear fetch at corner (s.x0, s.y0, s.z0), in the
 // order z, y, x (v[cz*4 + cy*2 + cx]), 0 for a corner outside the array
 // (CLAMP_TO_BORDER).
-//   * Interior (all 8 corners inside, most steps): one unsigned compare per
-//     axis, one base offset, and the other 7 corners at the constant
+//   * Interior: one base offset, and the other 7 corners at the constant
 //     strides 1, nx and nx*ny.
 //   * Border: each corner tested and loaded on its own.
 // 32-bit offsets where the array allows them were measured and not kept:
@@ -177,9 +184,7 @@ __device__ __forceinline__ void fetch_corners(const float* __restrict__ vol,
                                               const Grid& grid,
                                               const Sample& s,
                                               float (&v)[8]) {
-  if (static_cast<unsigned>(s.x0) < static_cast<unsigned>(grid.nx - 1) &&
-      static_cast<unsigned>(s.y0) < static_cast<unsigned>(grid.ny - 1) &&
-      static_cast<unsigned>(s.z0) < static_cast<unsigned>(grid.nz - 1)) {
+  if (interior(grid, s)) {
     const int64_t sy = grid.nx;
     const int64_t sz = sy * grid.ny;
     const float* p0 = vol + voxel_offset(s.x0, s.y0, s.z0, grid.nx, grid.ny);

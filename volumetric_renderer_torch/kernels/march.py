@@ -460,7 +460,8 @@ march_forward.texture_fills = 0
 #: What K1's and K2's counted instantiations count, in the order of their
 #: slots in a device's counter buffer (:class:`KernelCounts`).
 COUNTED = {"k1": ("sampled", "lane_steps"),
-           "k2": ("sampled", "lane_steps", "voxel_atomics", "tf_flushes")}
+           "k2": ("sampled", "lane_steps", "voxel_atomics", "tf_flushes",
+                  "voxel_reds")}
 
 
 class KernelCounts:
@@ -471,8 +472,12 @@ class KernelCounts:
     step loop (K1: its longest walk); ``voxel_atomics`` K2's ``atomicAdd``
     on the grid gradient (an in-grid corner of a sample whose density
     gradient is not 0); ``tf_flushes`` the trips in which K2's warp flushes
-    ended TF-gradient runs.  While off, a launch takes no buffer and runs
-    the kernel's uncounted instantiation."""
+    ended TF-gradient runs; ``voxel_reds`` the reductions K2 issues on the
+    grid gradient, scalar and float4 together (4 or 8 for the 8 corners of
+    a sample inside a grid whose rows are whole 16-byte slots, one per
+    in-grid corner elsewhere: ``csrc/march_bwd.cu:scatter_corners``).
+    While off, a launch takes no buffer and runs the kernel's uncounted
+    instantiation."""
 
     def __init__(self):
         self.on = False
