@@ -171,6 +171,28 @@ def test_one_camera_ray_grid_keeps_its_bits(yaw, pitch, radius):
     assert torch.equal(origin, cam.center - cam.radius * forward)
 
 
+@pytest.mark.parametrize("views", [1, 3])
+def test_ray_grid_at_given_points_keeps_each_pixels_bits(views):
+    """``ray_grid(..., ndc=)`` at pixel centres in any order and shape (a
+    shuffled 2-D set, as a rank's block is) gives each pixel bit for bit
+    its direction in the whole grid; ``pixel_ndc`` is that grid's
+    coordinates."""
+    h, w = 18, 26
+    cams = [tcam.OrbitCamera.from_angles(*p) for p in POSES[:views]]
+    cam = cams[0] if views == 1 else tcam.OrbitCamera(*(
+        torch.stack([getattr(c, f) for c in cams])
+        for f in ("center", "orientation", "radius")))
+    origin, dirs = tcam.ray_grid(cam, h, w)
+    x, y = tcam.pixel_ndc(h, w)
+    pick = torch.randperm(h * w, generator=torch.Generator().manual_seed(5))
+    pick = pick[:12 * 20].reshape(12, 20)
+    at, got = tcam.ray_grid(cam, h, w, ndc=(x.reshape(-1)[pick],
+                                             y.reshape(-1)[pick]))
+    want = dirs.reshape(dirs.shape[:-3] + (h * w, 3))[..., pick, :]
+    assert got.shape == dirs.shape[:-3] + (12, 20, 3)
+    assert torch.equal(got, want) and torch.equal(at, origin)
+
+
 def test_ray_grid_wide_fov_and_reference_arrays():
     """A camera carried across with ``from_reference_arrays`` gives the
     port's own rays; FoV 90 close to the cube as in the kernel's cases."""

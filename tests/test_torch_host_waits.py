@@ -43,6 +43,10 @@ from volumetric_renderer_torch.apps import optimize
 from volumetric_renderer_torch.core import fused
 from volumetric_renderer_torch.kernels import march
 from volumetric_renderer_torch.parallel.mesh import LAYOUTS, make_layout
+from volumetric_renderer_torch.parallel.render import (
+    block_inputs,
+    rank_pixels,
+)
 from volumetric_renderer_torch.parallel.train import (
     init_depth_state,
     init_state,
@@ -441,3 +445,39 @@ def test_main_paths_make_no_host_wait_on_cuda(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert torch.isfinite(out).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+def test_block_rays_match_the_packed_whole_grid_on_cuda(cuda, world):
+    """A 1080p batch of 8 views on the card: each rank's block of rays
+    from the sharded renderer's ray setup (``rank_pixels``,
+    ``block_inputs``; the world built by hand, rank and size as arguments)
+    within 1e-7 of that rank's rows of the whole frame's ``ray_grid``
+    packed with the layout, the inert direction on padding, in every
+    layout."""
+    h, w = 1080, 1920
+    settings = RenderSettings(height=h, width=w, step_size=1.8 / 512)
+    cam = stack_cameras([OrbitCamera.from_angles(45.0 * i, 20.0)
+                         for i in range(8)]).to(cuda)
+    vol = torch.zeros((2, 2, 2), device=cuda)
+    _, whole = ray_grid(cam, h, w)
+    inert = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    worst = {}
+    for layout in LAYOUTS:
+        gh, gw, pack, _, valid = make_layout(layout, h, w, world,
+                                             device=cuda)
+        rows = gh // world
+        packed = torch.where(valid[..., None, None] > 0.0,
+                             pack(whole.permute(1, 2, 0, 3)), inert)
+        for rank in range(world):
+            want = packed[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
+            _, got, *_ = block_inputs(
+                vol, cam, settings,
+                rank_pixels(layout, h, w, rank, world, cuda),
+                None, None, None, None)
+            assert got.shape == want.shape
+            worst[layout, rank] = float((got - want).abs().max())
+    print(f"block rays, world {world}: largest |difference| by (layout, "
+          f"rank) {worst}")
+    assert max(worst.values()) <= 1e-7

@@ -240,6 +240,7 @@ def worker(out_dir, world, rank):
         init_depth_state, make_depth_train_step, make_train_step,
         stack_cameras,
     )
+    from volumetric_renderer_torch.utils import metrics
 
     torch.set_num_threads(1)
     dev = distributed.init_distributed(
@@ -286,6 +287,13 @@ def worker(out_dir, world, rank):
     state, loss = step(sgd_state(vol, tf), fixed_of(vol, tf), cams, targets)
     res["pixels_step"] = (float(loss), state.params["vol"].detach(),
                           state.params["tf"].detach())
+    for layout in LAYOUTS:
+        step = make_train_step(settings, optimize_vol=True,
+                               optimize_tf=True, row_layout=layout)
+        with metrics.counting():
+            step(sgd_state(vol, tf), fixed_of(vol, tf), cams, targets)
+            res[f"ray_setup_rays_{layout}"] = \
+                metrics.read_counters("cpu")["ray_setup_rays"]
 
     axis = 1
     step = make_depth_train_step(settings, optimize_vol=True,
@@ -463,6 +471,19 @@ def test_pixel_train_step_is_replicated_and_equals_one_process(runs,
                            2e-4)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_train_step_makes_the_rays_of_its_own_block_only(runs, layout):
+    """Under ``counting``, one pixel train step of the two views makes
+    ``V * gh * gw / world`` rays on every rank (``ray_setup_rays``): its
+    own block of the packed frame, padding included, and no other."""
+    from volumetric_renderer_torch.parallel.mesh import make_layout
+
+    world, res = runs
+    gh, gw = make_layout(layout, *HW, world)[:2]
+    for r in res:
+        assert r[f"ray_setup_rays_{layout}"] == len(YAWS) * gh * gw // world
+
+
 @pytest.mark.parametrize("layout", GRAD_LAYOUTS)
 def test_batched_views_equal_the_per_view_loop_in_a_group(runs, layout):
     """In the gloo group, every view in one march equals one march per view:
@@ -593,6 +614,51 @@ def test_layouts_equal_jax(layout, hwn):
     np.testing.assert_array_equal(unpack(torch.from_numpy(x)).numpy(),
                                   np.asarray(junpack(jnp.asarray(x))))
     np.testing.assert_array_equal(unpack(packed).numpy(), img)
+
+
+RANKS = [(1, 0), (2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (4, 3)]
+
+
+@pytest.mark.parametrize("views", [1, 3])
+@pytest.mark.parametrize("hw", [(72, 120), (64, 64)], ids=["pads", "whole"])
+@pytest.mark.parametrize("world,rank", RANKS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_block_rays_equal_the_packed_whole_grid(layout, world, rank, hw,
+                                                views):
+    """The sharded renderer's ray setup for rank ``rank`` of ``world``
+    (``rank_pixels`` and ``block_inputs``; no group needed) gives bit for
+    bit that rank's rows of the whole frame's ``ray_grid`` packed with the
+    layout, the inert direction on padding, and counts those rays."""
+    from volumetric_renderer_torch.parallel.mesh import make_layout
+    from volumetric_renderer_torch.parallel.render import (
+        block_inputs, rank_pixels,
+    )
+    from volumetric_renderer_torch.parallel.train import stack_cameras
+    from volumetric_renderer_torch.scene.camera import OrbitCamera, ray_grid
+    from volumetric_renderer_torch.utils.config import RenderSettings
+
+    h, w = hw
+    settings = RenderSettings(height=h, width=w, step_size=STEP)
+    cams = [OrbitCamera.from_angles(yaw_deg=y, pitch_deg=21.0)
+            for y in (33.0, 150.0, 213.0)[:views]]
+    cam = cams[0] if views == 1 else stack_cameras(cams)
+    origin, whole = ray_grid(cam, h, w)
+    gh, gw, pack, _, valid = make_layout(layout, h, w, world)
+    rows = gh // world
+    packed = pack(whole.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
+    packed = torch.where(valid[..., None, None] > 0.0, packed,
+                         torch.tensor([0.0, 0.0, 1.0]))
+    want = packed[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
+
+    pixels = rank_pixels(layout, h, w, rank, world)
+    before = block_inputs.rays
+    got_origin, got, *_ = block_inputs(torch.zeros(2, 2, 2), cam, settings,
+                                       pixels, None, None, None, None)
+    assert got.shape == origin.shape[:-1] + (rows, gw, 3)
+    assert torch.equal(got.reshape(want.shape), want)
+    assert torch.equal(got_origin, origin + 0.5)
+    assert block_inputs.rays - before == views * rows * gw
+    assert (pixels[1] is None) == (gh * gw == h * w)
 
 
 def test_cyclic_row_layout_equals_jax():

@@ -71,19 +71,26 @@ YAWS = (0.0, 180.0)
 @pytest.fixture
 def jax_rays(monkeypatch):
     """Make the port march the JAX package's rays for its cameras, one
-    camera or a batch of views (a leading axis)."""
+    camera or a batch of views (a leading axis), for the whole grid or at
+    the given NDC points of it (the sharded renderer's block: each point
+    takes the ray of the pixel whose centre it is)."""
 
     def rays(camera, height, width, fov_y_degrees=40.0, near=0.1,
-             far=10.0):
+             far=10.0, ndc=None):
         o, d = zip(*(jray_grid(JCamera(c.center.numpy(),
                                        c.orientation.numpy(),
                                        c.radius.numpy()),
                                height, width, fov_y_degrees, near, far)
                      for c in camera_views(camera)))
-        o, d = np.stack(o), np.stack(d)
+        o, d = np.stack(o), torch.from_numpy(np.stack(d))
+        if ndc is not None:
+            x, y = ndc
+            col = torch.round((x + 1.0) * width / 2.0 - 0.5).long()
+            row = torch.round((y + 1.0) * height / 2.0 - 0.5).long()
+            d = d[:, row, col]
         if camera.orientation.dim() == 1:
             o, d = o[0], d[0]
-        return torch.from_numpy(o), torch.from_numpy(d)
+        return torch.from_numpy(o), d
 
     monkeypatch.setattr(marcher, "ray_grid", rays)
 

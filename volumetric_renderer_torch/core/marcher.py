@@ -74,7 +74,7 @@ def prepare_rays(origin, dirs, density_min, density_max):
 
 
 def frame_inputs(vol, camera, settings, density_min=None, density_max=None,
-                 slice_min=None, slice_max=None):
+                 slice_min=None, slice_max=None, ndc=None):
     """``(origin, dirs, dmin, dmax, smin, smax)`` of one frame, on ``vol``'s
     device, with the reference UBO defaults (``offscreen_pass.h:29-37``):
     the density window is the volume's min/max as set on import
@@ -82,7 +82,11 @@ def frame_inputs(vol, camera, settings, density_min=None, density_max=None,
     origin is in texture space: the world cube [-0.5,0.5]^3
     (``offscreen_pass.cpp:55-90``) maps to [0,1]^3, tex = world + 0.5.  A
     camera of V views (``scene.camera.ray_grid``) gives ``origin`` (V, 3)
-    and ``dirs`` (V, H, W, 3).
+    and ``dirs`` (V, H, W, 3).  ``ndc``, where given, is the pair of NDC
+    coordinates (shape S each, on ``vol``'s device) of the frame's pixels
+    to make rays for in place of all of them: ``dirs`` is then ``S + (3,)``
+    (``(V,) + S + (3,)``), each pixel's direction bit for bit its
+    direction in the whole grid (``ray_grid``'s ``ndc``).
 
     Nothing here makes the host wait for the card: the default slicing
     window is a constant kept on the device, values already there are
@@ -102,7 +106,7 @@ def frame_inputs(vol, camera, settings, density_min=None, density_max=None,
         else slice_max
     origin_world, dirs = ray_grid(
         camera.to(dev), settings.height, settings.width,
-        settings.fov_y_degrees, settings.near, settings.far,
+        settings.fov_y_degrees, settings.near, settings.far, ndc=ndc,
     )
     return (origin_world + 0.5, dirs, f32(density_min), f32(density_max),
             f32(slice_min), f32(slice_max))

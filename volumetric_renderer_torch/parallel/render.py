@@ -30,6 +30,7 @@ from volumetric_renderer_torch.core.marcher import frame_inputs
 from volumetric_renderer_torch.kernels import march as kernel_march
 from volumetric_renderer_torch.parallel.mesh import group_info, make_layout
 from volumetric_renderer_torch.render.api import make_marcher, select_method
+from volumetric_renderer_torch.scene.camera import pixel_ndc
 from volumetric_renderer_torch.utils.config import RenderSettings
 from volumetric_renderer_torch.utils.device import constant, per_device
 from volumetric_renderer_torch.utils.metrics import span
@@ -103,13 +104,59 @@ def all_reduce_grads(tensors, group=None) -> None:
             all_reduce_sum(t.grad, group)
 
 
+def rank_pixels(row_layout: str, height: int, width: int, rank: int,
+                world: int, device=None):
+    """Rank ``rank``'s block of an H x W image packed with ``row_layout``
+    over ``world`` ranks (``parallel.mesh.make_layout``), on ``device``:
+    ``(ndc, valid)``.  ``ndc`` is the pair ``(ndc_x, ndc_y)``, each ``(gh/n,
+    gw)``: the NDC coordinates of the pixel centres
+    (``scene.camera.pixel_ndc``) packed by the layout's own ``pack`` and
+    cut to this rank's rows, ``(0, 0)`` on padding.  ``valid`` is this
+    rank's rows of the layout's mask, or None where the layout pads no
+    position.  The coordinates depend on no camera, so a renderer makes
+    them once per device."""
+    gh, gw, pack, _, valid = make_layout(row_layout, height, width, world,
+                                         device=device)
+    rows = gh // world
+    lo = rank * rows
+    ndc = pack(torch.stack(pixel_ndc(height, width, device), -1))
+    ndc = tuple(c.contiguous() for c in ndc[lo:lo + rows].unbind(-1))
+    if gh * gw == height * width:
+        return ndc, None
+    return ndc, valid[lo:lo + rows].clone()
+
+
+def block_inputs(vol, camera, settings: RenderSettings, pixels, dmin, dmax,
+                 smin, smax):
+    """``core.marcher.frame_inputs`` for a rank's block of pixels only
+    (``pixels``, :func:`rank_pixels`): ``(origin, dirs, dmin, dmax, smin,
+    smax)`` with ``dirs`` ``(gh/n, gw, 3)``, or ``(V, gh/n, gw, 3)`` for a
+    camera of V views, each ray bit for bit the one at its position in the
+    packed whole frame, and the inert direction ``(0, 0, 1)`` on padded
+    positions.  Adds the rays it made to ``block_inputs.rays``
+    (``utils.metrics.read_counters``' ``ray_setup_rays``)."""
+    ndc, valid = pixels
+    origin, dirs, *window = frame_inputs(vol, camera, settings, dmin, dmax,
+                                         smin, smax, ndc=ndc)
+    if valid is not None:
+        dirs = torch.where(valid[..., None] > 0.0, dirs,
+                           constant((0.0, 0.0, 1.0), vol.device))
+    block_inputs.rays += dirs.numel() // 3
+    return (origin, dirs, *window)
+
+
+#: Rays made by :func:`block_inputs` since the count was last reset.
+block_inputs.rays = 0
+
+
 def view_groups(origin, rays) -> list:
     """V views' rays ``rays`` ``(V, rows, W, 3)`` from their eyes ``origin``
     (``(V, 3)``, or ``(3,)`` for one view), stacked along rows with a
     per-ray origin for :func:`march_views`: ``(origin (n*rows, 1, 3), rays
     (n*rows, W, 3))`` for each group of n views.  Where the stacked rows
     pass what one kernel launch takes (``kernels.march.MAX_ROWS``), the
-    views fall in the fewest groups that fit."""
+    views fall in the fewest groups that fit.  Contiguous ``rays``, as
+    both renderers make them, are stacked without a copy."""
     n_views, rows, w = rays.shape[:3]
     origin = origin.reshape((-1, 1, 1, 3))
     per = max(1, kernel_march.MAX_ROWS // rows)
@@ -136,25 +183,29 @@ def make_sharded_renderer(group, settings: RenderSettings,
     with the image's pixels sharded over the ranks of ``group`` (None: the
     default group, or a world of one without one).
 
-    Every rank makes the whole ray grid (small), packs it with
+    Every rank makes the rays of its own block of the image packed with
     ``row_layout`` (:func:`~volumetric_renderer_torch.parallel.mesh.
-    make_layout`), gives padded positions the inert direction ``(0, 0, 1)``
-    and marches its own block: the K1 kernel for a CUDA volume and
-    ``method="auto"``, the plain version on the CPU (``method`` as in
-    ``render``).  ``tile-cyclic`` gives each rank a ``(T*16/n, 16)`` image,
-    which the kernel tiles in exactly the original 16x16 tiles.
+    make_layout`) and no others: it unprojects the block's pixel
+    coordinates (:func:`rank_pixels`, packed once per device) through the
+    camera (:func:`block_inputs`), gives padded positions the inert
+    direction ``(0, 0, 1)`` and marches the block: the K1 kernel for a CUDA
+    volume and ``method="auto"``, the plain version on the CPU (``method``
+    as in ``render``).  Each ray is bit for bit the one a whole frame's ray
+    grid holds at its pixel.  ``tile-cyclic`` gives each rank a ``(T*16/n,
+    16)`` image, which the kernel tiles in exactly the original 16x16
+    tiles.
 
     A camera of V views (a leading axis on its fields, ``scene.camera.
     OrbitCamera``) renders all of them in one march: the ray setup runs
-    once for the V views, each view's block is cut as above, and the V
-    blocks are stacked along rows into one ``(V*gh/n, gw)`` image of rays.
-    Where that passes the rows one kernel launch takes
-    (``kernels.march.MAX_ROWS``), the views are marched in as few groups
-    as fit.
+    once for the V views' blocks, ``(V, gh/n, gw)`` rays, which are stacked
+    along rows into one ``(V*gh/n, gw)`` image of rays.  Where that passes
+    the rows one kernel launch takes (``kernels.march.MAX_ROWS``), the
+    views are marched in as few groups as fit.
 
-    The layout's tensors and the inert direction are made once per device,
-    on the first call there, so a later call copies nothing from the host
-    and never makes the host wait for the card.
+    The block's coordinates, the layout's tensors and the inert direction
+    are made once per device, on the first call there, so a later call
+    copies nothing from the host and never makes the host wait for the
+    card.
 
     The output is the whole image, gathered and unpacked; with
     ``permuted_output=True`` it is this rank's ``(gh/n, gw, 4)`` block in
@@ -169,26 +220,19 @@ def make_sharded_renderer(group, settings: RenderSettings,
     h, w = settings.height, settings.width
     gh, gw = make_layout(row_layout, h, w, world)[:2]
     rows = gh // world
-    padded = (gh, gw) != (h, w)
-    layout_on = per_device(
-        lambda dev: make_layout(row_layout, h, w, world, device=dev))
+    pixels_on = per_device(
+        lambda dev: rank_pixels(row_layout, h, w, rank, world, dev))
+    unpack_on = per_device(
+        lambda dev: make_layout(row_layout, h, w, world, device=dev)[3])
 
     def render_fn(vol, tf, camera, dmin, dmax, smin, smax):
-        dev = vol.device
-        _, _, pack, unpack, valid = layout_on(dev)
         march = make_marcher(select_method(method, vol), settings)
         with span("vr.ray_setup"):
-            origin, dirs, dmin, dmax, smin, smax = frame_inputs(
-                vol, camera, settings, dmin, dmax, smin, smax)
+            origin, dirs, dmin, dmax, smin, smax = block_inputs(
+                vol, camera, settings, pixels_on(vol.device), dmin, dmax,
+                smin, smax)
             views = tuple(dirs.shape[:-3])      # () for one camera, or (V,)
-            # the views ride through the layout as a channel axis: (H, W,
-            # V, 3)
-            dirs = pack(dirs.reshape((-1, h, w, 3)).permute(1, 2, 0, 3))
-            if padded:
-                dirs = torch.where(valid[..., None, None] > 0.0, dirs,
-                                   constant((0.0, 0.0, 1.0), dev))
-            block = dirs[rank * rows:(rank + 1) * rows].permute(2, 0, 1, 3)
-            groups = view_groups(origin, block)
+            groups = view_groups(origin, dirs.reshape((-1, rows, gw, 3)))
         if reduce_grads:
             vol, tf, dmin, dmax = (sum_across(x, group)
                                    for x in (vol, tf, dmin, dmax))
@@ -196,7 +240,8 @@ def make_sharded_renderer(group, settings: RenderSettings,
                           smax).reshape((-1, rows, gw, 4))  # (V, rows, gw, 4)
         if permuted_output:
             return img.reshape(views + (rows, gw, 4))
-        img = unpack(gather_blocks(img.permute(1, 2, 0, 3), group))
+        img = unpack_on(img.device)(gather_blocks(img.permute(1, 2, 0, 3),
+                                                  group))
         return img.permute(2, 0, 1, 3).reshape(views + (h, w, 4))
 
     return render_fn

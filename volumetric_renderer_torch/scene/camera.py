@@ -189,9 +189,41 @@ def _mm(a, b):
     return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
+def pixel_ndc(height: int, width: int, device=None):
+    """``(ndc_x, ndc_y)``, each ``(H, W)``: the NDC coordinates of an H x W
+    image's pixel centres (row 0 at y = -1, column 0 at x = -1)."""
+    ys = (2.0 * (torch.arange(height, dtype=torch.float32, device=device)
+                 + 0.5) / height) - 1.0
+    xs = (2.0 * (torch.arange(width, dtype=torch.float32, device=device)
+                 + 0.5) / width) - 1.0
+    ndc_y, ndc_x = torch.meshgrid(ys, xs, indexing="ij")
+    return ndc_x, ndc_y
+
+
+def unproject(m_inv, ndc_x, ndc_y):
+    """Unit world directions of the rays through the NDC points ``(ndc_x,
+    ndc_y)`` (equal shapes S) of a camera whose clip-from-world matrix has
+    the inverse ``m_inv`` (``(4, 4)``, or ``(V, 4, 4)`` for V views): ``S +
+    (3,)``, or ``(V,) + S + (3,)``.  Each point's direction takes the same
+    operations in the same order wherever it lies, so a point gives the
+    same float32 direction in any set of points."""
+    cols = m_inv.reshape(m_inv.shape[:-2] + (1,) * ndc_x.dim() + (4, 4))
+
+    def at_depth(z):
+        # (ndc_x, ndc_y, z, 1) @ m_inv.T over m_inv's four columns
+        w = (ndc_x[..., None] * cols[..., 0] + ndc_y[..., None] * cols[..., 1]
+             + (z * cols[..., 2] + cols[..., 3]))
+        return w[..., :3] / w[..., 3:4]
+
+    p_near = at_depth(0.25)
+    p_far = at_depth(0.75)
+    d = p_far - p_near
+    return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
 def ray_grid(camera: OrbitCamera, height: int, width: int,
              fov_y_degrees: float = 40.0, near: float = 0.1,
-             far: float = 10.0) -> Tuple[torch.Tensor, torch.Tensor]:
+             far: float = 10.0, ndc=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel world-space rays through pixel centers, on the camera's
     device.
 
@@ -201,28 +233,16 @@ def ray_grid(camera: OrbitCamera, height: int, width: int,
     of V views (leading axis, see :class:`OrbitCamera`) gives
     ``(origin[V, 3], dirs[V, H, W, 3])`` with the same operations, each
     broadcast over the views.
+
+    ``ndc``, where given, is a pair ``(ndc_x, ndc_y)`` of equal shapes S on
+    the camera's device: the NDC points of the H x W image to unproject in
+    place of all its pixel centres (:func:`pixel_ndc`).  ``dirs`` is then
+    ``S + (3,)`` (``(V,) + S + (3,)``), and a pixel centre's direction is
+    the same float32 value as in the whole grid (:func:`unproject`).
     """
-    dev = camera.orientation.device
     aspect = float(width) / float(height)
     m = projection_matrix(camera, aspect, fov_y_degrees, near, far)
     m_inv = torch.linalg.inv_ex(m).inverse
-
-    ys = (2.0 * (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
-          / height) - 1.0
-    xs = (2.0 * (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
-          / width) - 1.0
-    ndc_y, ndc_x = torch.meshgrid(ys, xs, indexing="ij")
-
-    cols = m_inv[..., None, None, :, :]        # over (H, W) of each view
-
-    def unproject(z):
-        # (ndc_x, ndc_y, z, 1) @ m_inv.T over m_inv's four columns
-        w = (ndc_x[..., None] * cols[..., 0] + ndc_y[..., None] * cols[..., 1]
-             + (z * cols[..., 2] + cols[..., 3]))
-        return w[..., :3] / w[..., 3:4]
-
-    p_near = unproject(0.25)
-    p_far = unproject(0.75)
-    d = p_far - p_near
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    return camera.position(), d
+    if ndc is None:
+        ndc = pixel_ndc(height, width, camera.orientation.device)
+    return camera.position(), unproject(m_inv, *ndc)

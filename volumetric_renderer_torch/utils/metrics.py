@@ -19,7 +19,8 @@ counter shown in the status bar (``src/application.cpp:102-122``,
   can be tied to the layer whose host code launched it;
 * :func:`counting` and :func:`read_counters` — the work counted inside K1
   and K2 (their counted instantiations), the bytes handed to the
-  all-reduce, and the launch counters the wrappers keep.
+  all-reduce, the rays the pixel-sharded renderer made, and the launch
+  counters the wrappers keep.
 
 The meters read wall clocks.  Work queued on a CUDA device is inside a
 timer's phase only once something in it waits for the device: the
@@ -173,6 +174,7 @@ def counting() -> Iterator[None]:
     march.march_forward.texture_fills = 0
     fold.fold_forward.launches = fold.fold_backward.launches = 0
     render.all_reduce_sum.bytes = 0
+    render.block_inputs.rays = 0
     march.counts.on = True
     try:
         yield
@@ -185,7 +187,9 @@ def read_counters(device) -> dict:
     the kernels' counts on ``device`` (None where no counted launch ran
     there; reading them waits for the card), ``nccl_bytes``, the bytes this
     process handed to the all-reduce (``parallel.render.all_reduce_sum``),
-    and the wrappers' launch counters: ``k1_launches``, ``k2_launches``,
+    ``ray_setup_rays``, the rays the pixel-sharded renderer made for this
+    rank's blocks (``parallel.render.block_inputs``), and the wrappers'
+    launch counters: ``k1_launches``, ``k2_launches``,
     ``k2_grid_only_launches`` (of K2's, those of its grid-only
     instantiation), ``fold_launches`` and ``texture_fills``."""
     from volumetric_renderer_torch.kernels import fold, march
@@ -193,6 +197,7 @@ def read_counters(device) -> dict:
 
     return dict(march.counts.read(device),
                 nccl_bytes=render.all_reduce_sum.bytes,
+                ray_setup_rays=render.block_inputs.rays,
                 k1_launches=march.march_forward.launches,
                 k2_launches=march.march_backward.launches,
                 k2_grid_only_launches=march.march_backward.grid_only_launches,
